@@ -1,0 +1,192 @@
+"""The two MapReduce jobs as one fused device program on a virtual mesh
+(paper §4.3–§4.4).
+
+MR¹ (statistics): route tuple-set rows per the static plan (gather →
+all_to_all → mask), build dense ``num``-arrays per dimension and worker,
+probe them per fact row to produce fact volumes and per-dimension ``vol``
+contributions.
+
+MR² (term frequency): weighted token histogram of every routed payload with
+its volume (the ``fct_count`` kernel on CUDA, its plain version on the CPU),
+summed over workers — the "aggregation equal transformation" of Theorem 1 —
+then a host-side top-k with the Def. 6 exclusions.
+
+Layout.  The reference runs one worker per device under ``shard_map`` and
+``vmap``s the body over the CNs of a group.  Here both are explicit leading
+axes on one device (:class:`repro_torch.launch.mesh.VirtualMesh`): a routed
+relation is ``[N, P, P*C, ...]`` — CN, destination worker, then the rows it
+received from every source worker in source order, exactly the reference's
+post-``all_to_all`` buffer.  MR¹ keeps the worker axis (num-arrays are per
+worker: a dimension row is replicated to several workers).  MR² flattens it
+into the histogram's row axis, so one kernel launch per relation counts all
+CNs and all workers at once; the psum over workers is folded into that sum,
+which is bit-identical because integer addition is associative modulo the
+accumulator width.
+
+Index semantics follow the reference explicitly, since torch index ops raise
+where JAX's clamp or drop: gathers wrap a negative index once and then clamp
+(:func:`_clamp_index`); scatter-adds wrap once and drop what is still out of
+range (:func:`_scatter_add_drop`).  On the main path every index is in range.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.accum import INT32_CHECKED, AccumPolicy
+from repro_torch.core.plan import CNPlan
+from repro_torch.kernels.fct_count.ops import weighted_histogram
+from repro_torch.launch.mesh import VirtualMesh
+
+
+def _clamp_index(idx: torch.Tensor, size: int) -> torch.Tensor:
+    """Gather index under JAX semantics: negative counts from the end
+    (once), then out-of-range clamps to the edge."""
+    idx = torch.where(idx < 0, idx + size, idx)
+    return idx.clamp(0, size - 1)
+
+
+def _scatter_add_drop(target: torch.Tensor, dim: int, idx: torch.Tensor,
+                      src: torch.Tensor) -> None:
+    """In-place ``target.scatter_add_`` under ``.at[].add(mode="drop")``
+    semantics: negative counts from the end (once); indices still outside
+    ``[0, size)`` add nothing."""
+    size = target.shape[dim]
+    idx = torch.where(idx < 0, idx + size, idx)
+    ok = (idx >= 0) & (idx < size)
+    target.scatter_add_(dim, torch.where(ok, idx, 0),
+                        torch.where(ok, src, torch.zeros_like(src)))
+
+
+def _route(texts: Sequence[torch.Tensor], keys: Sequence[torch.Tensor],
+           send: torch.Tensor, cols: Optional[torch.Tensor] = None):
+    """Gather rows into per-destination buffers and all_to_all them, for a
+    batch of N CNs.
+
+    ``texts[n]`` is CN n's ``[P, S, L]`` text, ``keys[n]`` its ``[P, S]``
+    (dim) or ``[P, S, m_all]`` (fact) keys — separate tensors, so CNs over
+    one store-resident tuple set share it without a stacked copy.  ``send``
+    is ``[N, P(src), P(dst), C]`` (local row index, -1 pad); ``cols``
+    ``[N, m]`` selects each CN's fact key columns.  Returns the received
+    ``(text [N, P, P*C, L], keys [N, P, P*C(, m)], mask [N, P, P*C])``.
+    """
+    N, P, _, C = send.shape
+    S, L = texts[0].shape[1:]
+    dev = send.device
+    send_t = send.transpose(1, 2).long()       # [N, dst, src, C]: all_to_all
+    mask = (send_t >= 0).reshape(N, P, P * C)
+    # a valid plan names rows in [0, S) only; -1 pads are masked, and the
+    # clamp keeps every gather in bounds
+    local = send_t.clamp(0, S - 1)
+    flat = (torch.arange(P, device=dev).view(1, 1, P, 1) * S
+            + local).reshape(N, P * P * C)
+    rtext = torch.empty((N, P * P * C, L), dtype=texts[0].dtype, device=dev)
+    k_tail = keys[0].shape[2:] if cols is None else (cols.shape[1],)
+    rkeys = torch.empty((N, P * P * C) + tuple(k_tail), dtype=keys[0].dtype,
+                        device=dev)
+    for n in range(N):
+        torch.index_select(texts[n].reshape(P * S, L), 0, flat[n],
+                           out=rtext[n])
+        k = keys[n].reshape((P * S,) + tuple(keys[n].shape[2:]))
+        if cols is None:
+            torch.index_select(k, 0, flat[n], out=rkeys[n])
+        else:
+            rkeys[n] = k.index_select(0, flat[n]).index_select(
+                1, _clamp_index(cols[n].long(), k.shape[1]))
+    return (rtext.view(N, P, P * C, L),
+            rkeys.view((N, P, P * C) + tuple(k_tail)), mask)
+
+
+def _route_cn(fact: Dict, dims: Sequence[Dict]):
+    """MR¹ shuffle stage: route every relation of a CN batch per its send
+    tables.  ``fact["cols"]`` (optional) names each CN's columns of the
+    full-width store-resident fact key matrix."""
+    routed_fact = _route(fact["text"], fact["keys"], fact["send"],
+                         fact.get("cols"))
+    routed_dims = [_route(d["text"], d["keys"], d["send"]) for d in dims]
+    return routed_fact, routed_dims
+
+
+def _mr1_volumes(routed_fact, routed_dims, domains: Tuple[int, ...],
+                 accum: AccumPolicy = INT32_CHECKED):
+    """MR¹ statistics on routed relations: per-worker num-arrays (combine +
+    reduce-side counting), then fact volume and per-dimension vol
+    contributions (Algorithm 3 stage 2).  Returns (vol_fact, dim_vols), each
+    ``[N, P, rows]`` in the policy dtype; products wrap as the reference's
+    do."""
+    acc = accum.dtype
+    _, fkeys, fmask = routed_fact
+    N, P = fmask.shape[:2]
+    dev = fmask.device
+    m = len(routed_dims)
+    nums = []
+    for (_, dkeys, dmask), dom in zip(routed_dims, domains):
+        num = torch.zeros((N, P, dom), dtype=torch.int32, device=dev)
+        _scatter_add_drop(num, 2, dkeys.long(), dmask.to(torch.int32))
+        nums.append(num)
+    fk = [fkeys[..., i].long() for i in range(m)]
+    probes = [nums[i].gather(2, _clamp_index(fk[i], domains[i])).to(acc)
+              for i in range(m)]
+    fvalid = fmask.to(acc)
+    vol_fact = fvalid
+    for pr in probes:
+        vol_fact = vol_fact * pr
+    dim_vols = []
+    for i in range(m):
+        others = fvalid
+        for j in range(m):
+            if j != i:
+                others = others * probes[j]
+        contrib = torch.zeros((N, P, domains[i]), dtype=acc, device=dev)
+        _scatter_add_drop(contrib, 2, fk[i], others)
+        _, dkeys, dmask = routed_dims[i]
+        dim_vols.append(
+            contrib.gather(2, _clamp_index(dkeys.long(), domains[i]))
+            * dmask.to(acc))
+    return vol_fact, dim_vols
+
+
+def _device_fct_local(fact: Dict, dims: Sequence[Dict], *,
+                      domains: Tuple[int, ...], vocab: int,
+                      accum: AccumPolicy = INT32_CHECKED) -> torch.Tensor:
+    """MR¹+MR² for a batch of N CNs -> ``[N, vocab]`` histograms in the
+    policy dtype, summed over the worker axis (the reference's per-worker
+    histograms followed by its psum, bit for bit)."""
+    routed_fact, routed_dims = _route_cn(fact, dims)
+    vol_fact, dim_vols = _mr1_volumes(routed_fact, routed_dims, domains,
+                                      accum)
+    ftext = routed_fact[0]
+    N, L = ftext.shape[0], ftext.shape[-1]
+    # --- MR2: weighted histograms, workers flattened into the row axis ---
+    hist = weighted_histogram(ftext.reshape(N, -1, L),
+                              vol_fact.reshape(N, -1), vocab)
+    for (dtext, _, _), w in zip(routed_dims, dim_vols):
+        hist = hist + weighted_histogram(
+            dtext.reshape(N, -1, dtext.shape[-1]),
+            w.to(hist.dtype).reshape(N, -1), vocab)
+    return hist
+
+
+def plan_to_tensors(plan: CNPlan, device) -> Tuple[Dict, List[Dict]]:
+    """One plan's materialized host columns as a batch of one CN."""
+    def rel(route) -> Dict:
+        return {"text": [torch.as_tensor(route.text, device=device)],
+                "keys": [torch.as_tensor(route.keys, device=device)],
+                "send": torch.as_tensor(route.send, device=device)[None]}
+    return rel(plan.fact), [rel(plan.dims[i]) for i in plan.included]
+
+
+def run_cn_plan(plan: CNPlan, mesh: VirtualMesh,
+                accum: AccumPolicy = INT32_CHECKED) -> np.ndarray:
+    """The per-CN baseline: one plan, host-materialized columns, one
+    program -> freq[vocab] int64 (no wrap check, as in the reference)."""
+    if mesh.n_workers != plan.n_devices:
+        raise ValueError(f"plan built for {plan.n_devices} workers, mesh has "
+                         f"{mesh.n_workers}")
+    fact, dims = plan_to_tensors(plan, mesh.device)
+    hist = _device_fct_local(
+        fact, dims, domains=tuple(plan.key_domains[i] for i in plan.included),
+        vocab=plan.vocab_size, accum=accum)
+    return hist[0].to(accum.dtype).cpu().numpy().astype(np.int64)

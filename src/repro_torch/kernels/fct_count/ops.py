@@ -1,0 +1,55 @@
+"""Public op: weighted token histogram, dispatched by device.
+
+    backend="auto"   the tensors' device decides: a CPU tensor takes the
+                     plain version (ref.py), a CUDA tensor the hand-written
+                     kernel (kernel.py) — which raises if it cannot build or
+                     launch; nothing falls back
+    backend="ref"    the plain version on any device (explicit only: the
+                     chip smoke's kernel-vs-plain comparison asks for it)
+    backend="cuda"   the kernel; raises on a CPU tensor
+
+Integer weights (int32, int64) take the integer-exact kernel
+instantiations, float32 weights the float one (exact only for totals below
+2^24; its atomics add in no fixed order).
+
+``PATH_COUNTS`` tallies which path each call took ("ref", "cuda_exact",
+"cuda_float") so a run can show that its histograms went through the kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.fct_count import kernel, ref
+
+PATH_COUNTS = {"ref": 0, "cuda_exact": 0, "cuda_float": 0}
+
+
+def reset_path_counts() -> None:
+    for k in PATH_COUNTS:
+        PATH_COUNTS[k] = 0
+
+
+def weighted_histogram(tokens: torch.Tensor, weights: torch.Tensor,
+                       vocab: int, backend: str = "auto") -> torch.Tensor:
+    """freq[..., w] = Σ_rows weight[..., row]·count(tokens[..., row], w).
+
+    ``tokens [B, R, L]`` with ``weights [B, R]`` -> ``[B, vocab]``, or the
+    unbatched ``[R, L]`` / ``[R]`` -> ``[vocab]``.  PAD is never counted;
+    the output dtype follows ``weights``.
+    """
+    unbatched = tokens.dim() == 2
+    if unbatched:
+        tokens, weights = tokens.unsqueeze(0), weights.unsqueeze(0)
+    if backend == "auto":
+        backend = "cuda" if tokens.is_cuda else "ref"
+    if backend == "ref":
+        PATH_COUNTS["ref"] += 1
+        out = ref.weighted_histogram(tokens, weights, vocab)
+    elif backend == "cuda":
+        out = kernel.fct_count(tokens.contiguous(), weights.contiguous(),
+                               vocab)
+        PATH_COUNTS["cuda_float" if weights.dtype.is_floating_point
+                    else "cuda_exact"] += 1
+    else:
+        raise ValueError(f"unknown fct_count backend {backend!r}")
+    return out[0] if unbatched else out
