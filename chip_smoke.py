@@ -5,35 +5,65 @@
 
 Phases, one line each, then a kernels line and a last line with the device:
 
-  1. card     ``nvidia-smi`` name and power limit.
-  2. build    compile the hand-written CUDA kernels from the checkout's
-              sources (``nvcc``, one process per source, started together).
-  3. kernels  each kernel against its plain PyTorch version on the card:
-              int32 (random, past 2^24, wrapping past 2^31), int64 (past
-              2^33, wrapping near 2^62), float32 (exact range), ragged
-              vocabs, all-PAD, ids outside the vocab, B > 1.  Integer and
-              exact-range float cases must be bit-equal (``torch.equal``).
-  4. main     the FCT main path at TPC-H SF1 cardinalities (LINEITEM
-              6 001 215, PART 200 000, SUPPLIER 10 000, ORDERS 1 500 000;
-              TPC-H spec v3 §4.2.5), text_len 12, vocab 32 768: a cold
-              ``FCTSession.query``, two warm ones (0 program builds, 0
-              column uploads), a 3-request ``query_batch`` and an int64
-              query, every answer bit-equal to the numpy ``fct_star`` +
-              ``topk_terms`` oracle, with every kernel launch counter reset
-              just before and read just after.  ``--scale`` cuts the row
-              counts only.
-  5. profile  one more warm query under ``torch.profiler``: device time by
-              kernel, fct_count's share, the device's idle share.
-  6. timing   each kernel at the main path's largest call (its actual
-              inputs): first held against the plain version on those inputs
-              (integer dtypes bit-equal; float32, off the main path, runs on
-              the int32 call's nonzero-weight mask so every bin stays below
-              2^24 and must be bit-equal too), then timed: kernel, plain
-              version, one PyTorch library call on prepared inputs, and the
-              device-memory bound.
+  1. card       ``nvidia-smi`` name and power limit.
+  2. build      compile the hand-written CUDA kernels from the checkout's
+                sources (``nvcc``, one process per source, started
+                together): fct_count, flash_attention, lru_scan.
+  3. kernels    each kernel against its plain PyTorch version on the card.
+                fct_count: int32 (random, past 2^24, wrapping past 2^31),
+                int64 (past 2^33, wrapping near 2^62), float32 (exact
+                range), ragged vocabs, all-PAD, ids outside the vocab,
+                B > 1; integer and exact-range float cases bit-equal
+                (``torch.equal``).  flash_attention: D in {16, 32, 64, 128,
+                256}, GQA, MQA, Dv != D, encoder (non-causal), windows with
+                S > window and a window that is no multiple of the tile,
+                ragged S, float32 within 2e-5 and bfloat16 within 4e-2 (the
+                reference's tolerances).  lru_scan: float32 within 1e-5,
+                bfloat16 within 4e-2.
+  4. main       the FCT main path at TPC-H SF1 cardinalities (LINEITEM
+                6 001 215, PART 200 000, SUPPLIER 10 000, ORDERS 1 500 000;
+                TPC-H spec v3 §4.2.5), text_len 12, vocab 32 768: a cold
+                ``FCTSession.query``, two warm ones (0 program builds, 0
+                column uploads), a 3-request ``query_batch`` and an int64
+                query, every answer bit-equal to the numpy ``fct_star`` +
+                ``topk_terms`` oracle, with every kernel's launch count
+                reset just before and read just after.  ``--scale`` cuts the
+                row counts only.
+  5. profile    one more warm query under ``torch.profiler``: device time by
+                kernel, fct_count's share, the device's idle share (the
+                prefill of phase 7 is profiled the same way).
+  6. fct_timing each fct_count instantiation at the main path's largest call
+                (its actual inputs): held against the plain version on those
+                inputs (bit-equal), then timed: kernel, plain version, one
+                ``index_add_`` on prepared inputs, and the byte bound.
+  7. lm_prefill recurrentgemma-2b (arXiv:2402.19427) at full width and
+                depth in bf16, random weights from ``--seed``: one prefill
+                ``forward`` of B 1 x S 8 192 tokens (cut from the dry-run's
+                prefill_32k, B 32 x S 32 768, whose float32 logits alone
+                would take 1.07 TB), every count reset just before and read
+                just after: one flash_attention launch per local layer (8),
+                one lru_scan launch per rglru layer (18), no plain-version
+                call.  Keeps the first local layer's attention inputs and
+                the first rglru layer's scan inputs.
+  8. lm_decode  the same model in float32: ``forward`` of B 1 x S 2 304
+                (flash, since S >= 1 024; past the 2 048 window, so the
+                decode ring buffer wraps) against token-by-token
+                ``decode_step``: max abs logit error below 5e-3, top-1 ids
+                equal wherever the forward's top-2 margin exceeds 1e-2.
+  9. lm_serve   ``python -m repro_torch.launch.serve --arch
+                recurrentgemma-2b --full --batch 4 --prompt-len 12
+                --gen-len 24``, in process: tokens/s.
+ 10. lm_timing  flash_attention and lru_scan on the inputs kept in phase 7:
+                held against their plain versions there (flash in bf16 by
+                the one rounding both sides share: |kernel - plain| <=
+                2^-7 |plain| + 2^-8 mean|plain|), then timed:
+                kernel, plain version, ``scaled_dot_product_attention``
+                with the same band mask (flash only; no single PyTorch call
+                computes the recurrence), and the bound.
 
-Exits non-zero, printing no result, when there is no CUDA device, when the
-package is missing beside this script, or when any phase fails.
+Float32 matrix products run in full float32 (TF32 off).  Exits non-zero,
+printing no result, when there is no CUDA device, when the package is
+missing beside this script, or when any phase fails.
 """
 from __future__ import annotations
 
@@ -223,8 +253,7 @@ def run_main_path(torch, np, args, dev):
     recorder = Recorder(kernel.fct_count)
     kernel.fct_count = recorder
     torch.cuda.reset_peak_memory_stats(dev)
-    kernel.reset_launches()
-    ops.reset_path_counts()
+    reset_all_counts()
     try:
         session = FCTSession(schema, device=dev)
         resps = [("cold", session.query(full))]
@@ -278,16 +307,17 @@ def run_main_path(torch, np, args, dev):
 
 # --- phase 5: where one warm query's device time goes -------------------------
 
-def profile_warm_query(torch, session, req) -> str:
-    """One more warm query under ``torch.profiler``: device time by kernel
-    name, fct_count's share of it, and the device's busy share of the
-    query's wall time (host clock up to a synchronize)."""
+def profile_device(torch, run, kernels) -> str:
+    """``run()`` once under ``torch.profiler``: device time by kernel name,
+    the share of each of ``kernels`` (name -> substring of its device
+    kernel's name), and the device's busy share of the wall time (host clock
+    up to a synchronize)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        session.query(req)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans, by_name = [], {}
@@ -306,12 +336,15 @@ def profile_warm_query(torch, session, req) -> str:
         busy_ms += max(0.0, e - max(s, end)) / 1e3
         end = max(end, e)
     device_ms = sum(by_name.values())
-    count_ms = sum(v for k, v in by_name.items() if "fct_count_kernel" in k)
+    shares = []
+    for label, key in kernels.items():
+        ms = sum(v for k, v in by_name.items() if key in k)
+        shares.append(f"{label}_ms {ms:.3f} (share {ms / device_ms:.4f})")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return (f"wall_ms {wall_ms:.3f} device_busy_ms {busy_ms:.3f} (idle share "
             f"{1 - busy_ms / wall_ms:.4f}) device_ms {device_ms:.3f} "
-            f"fct_count_ms {count_ms:.3f} (share {count_ms / device_ms:.4f});"
-            " top: " + "; ".join(f"{k[:70]} {v:.3f}ms" for k, v in top))
+            + " ".join(shares) + "; top: "
+            + "; ".join(f"{k[:70]} {v:.3f}ms" for k, v in top))
 
 
 # --- phase 6: timing -----------------------------------------------------------
@@ -377,6 +410,424 @@ def time_kernel(torch, ops, tokens, weights, vocab):
             "shape": [B, R, L, vocab]}
 
 
+# --- LM phases: recurrentgemma-2b prefill, decode and serve ------------------
+
+LM_ARCH = "recurrentgemma-2b"
+PREFILL_B, PREFILL_S = 1, 8192      # cut from prefill_32k's B 32 x S 32 768
+DECODE_B, DECODE_S = 1, 2304        # > 1 024 (flash), > window 2 048 (ring wraps)
+DECODE_TOL = 5e-3                   # max abs logit error, decode vs forward
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 4e-2}
+# flash at the prefill's own bf16 inputs, whose outputs (mean magnitude
+# about 0.06) are no larger than FLASH_TOL's absolute term: both sides
+# compute in float32 from the same inputs and round to bf16 once, so they
+# may land on adjacent bf16 values, at most 2^-7 |plain| apart; the
+# absolute term, 2^-8 mean|plain|, covers float32 summation order near 0
+CAPTURED_BF16_REL = 2.0 ** -7
+CAPTURED_BF16_ABS_OF_MEAN = 2.0 ** -8
+LRU_TOL = 1e-5
+# H100 SXM peak operations/s by input type: dense bf16 tensor cores, and
+# float32 outside the tensor cores
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": PEAK_SCALAR_OPS_PER_S}
+LM_KERNELS = {  # name -> (source, TPU kernel it replaces)
+    "flash_attention": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:79"),
+    "lru_scan": ("src/repro_torch/kernels/lru_scan/csrc/lru_scan.cu",
+                 "src/repro/kernels/lru_scan/kernel.py:43"),
+}
+
+
+def count_modules():
+    from repro_torch.kernels.fct_count import kernel as fct_kernel
+    from repro_torch.kernels.fct_count import ops as fct_ops
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.lru_scan import kernel as lru_kernel
+    from repro_torch.kernels.lru_scan import ops as lru_ops
+    return ((fct_kernel, flash_kernel, lru_kernel),
+            (fct_ops, flash_ops, lru_ops))
+
+
+def reset_all_counts() -> None:
+    """Every kernel's launch count and every op's path count to 0."""
+    kernels, opses = count_modules()
+    for m in kernels:
+        m.LIB.reset_launches()
+    for m in opses:
+        m.reset_path_counts()
+
+
+def read_counts():
+    """(launches by kernel name, path counts by op) as they stand."""
+    kernels, opses = count_modules()
+    launches = {k: v for m in kernels for k, v in m.LAUNCHES.items()}
+    paths = {m.__name__.split(".")[-2]: dict(m.PATH_COUNTS) for m in opses}
+    return launches, paths
+
+
+def flash_cases(torch, np, dev):
+    """(label, q, k, v, causal, window): every row of what goes wrong in a
+    port of flash attention, in float32 and bfloat16."""
+    rng = np.random.default_rng(4321)
+    shapes = [  # b, s, h, hkv, d, dv, causal, window
+        ("GQA causal D32", 2, 128, 4, 2, 32, 32, True, None),
+        ("MQA window 64 ragged S200 D16", 1, 200, 6, 1, 16, 16, True, 64),
+        ("encoder Dv16 != D32", 2, 96, 4, 4, 32, 16, False, None),
+        ("causal D128", 1, 64, 2, 2, 128, 128, True, None),
+        ("GQA D64 S1100 > window 100", 1, 1100, 4, 2, 64, 64, True, 100),
+        ("MQA D256 ragged S1000 > window 300", 1, 1000, 10, 1, 256, 256,
+         True, 300),
+        ("encoder D256 Dv128 ragged S333", 1, 333, 2, 1, 256, 128, False,
+         None),
+    ]
+    for label, b, s, h, hkv, d, dv, causal, window in shapes:
+        base = [rng.normal(size=shape).astype(np.float32) for shape in
+                ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, dv))]
+        for dtype in ("float32", "bfloat16"):
+            q, k, v = (torch.from_numpy(x).to(dev, getattr(torch, dtype))
+                       for x in base)
+            yield f"{label} {dtype}", q, k, v, causal, window
+
+
+def lru_cases(torch, np, dev):
+    rng = np.random.default_rng(8765)
+    for b, s, w, dtype in ((2, 64, 32, "float32"), (1, 300, 700, "float32"),
+                           (3, 17, 5, "float32"), (2, 1000, 2560, "float32"),
+                           (2, 300, 700, "bfloat16")):
+        a = rng.uniform(0.8, 1.0, (b, s, w)).astype(np.float32)
+        x = rng.normal(size=(b, s, w)).astype(np.float32)
+        yield (f"[{b},{s},{w}] {dtype}",
+               *(torch.from_numpy(t).to(dev, getattr(torch, dtype))
+                 for t in (a, x)))
+
+
+def flash_pair(torch, flash_ops, q, k, v, causal, window):
+    """(kernel output, plain output) on one input, as float32."""
+    got = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                     block_q=64, block_k=32, backend="ref")
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), "flash kernel: non-finite output")
+    return got.float(), want.float()
+
+
+def flash_err(torch, flash_ops, q, k, v, causal, window):
+    """(max abs error, tolerance, within it) of the kernel against the
+    plain version on one input, by the reference's assert_allclose rule:
+    |got - want| <= tol + tol |want|."""
+    got, want = flash_pair(torch, flash_ops, q, k, v, causal, window)
+    tol = FLASH_TOL[str(q.dtype).split(".")[-1]]
+    diff = (got - want).abs()
+    ok = bool((diff <= tol + tol * want.abs()).all())
+    return float(diff.max()), tol, ok
+
+
+def lru_err(torch, lru_ops, a, b):
+    got = lru_ops.lru_scan(a, b)
+    want = lru_ops.lru_scan(a, b, backend="ref")
+    torch.cuda.synchronize()
+    tol = LRU_TOL if a.dtype == torch.float32 else FLASH_TOL["bfloat16"]
+    diff = (got.float() - want.float()).abs()
+    ok = bool((diff <= tol + tol * want.float().abs()).all())
+    return float(diff.max()), tol, ok
+
+
+def run_lm_kernel_cases(torch, np, dev):
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.lru_scan import ops as lru_ops
+    errs = {"flash_attention": 0.0, "lru_scan": 0.0}
+    lines = []
+    for label, q, k, v, causal, window in flash_cases(torch, np, dev):
+        err, tol, ok = flash_err(torch, flash_ops, q, k, v, causal, window)
+        check(ok, f"flash {label}: kernel != plain (max abs err {err}, "
+                  f"tolerance {tol})")
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        lines.append(f"flash {label}: {err:.3g} <= {tol}")
+    for label, a, b in lru_cases(torch, np, dev):
+        err, tol, ok = lru_err(torch, lru_ops, a, b)
+        check(ok, f"lru_scan {label}: kernel != plain (max abs err {err}, "
+                  f"tolerance {tol})")
+        errs["lru_scan"] = max(errs["lru_scan"], err)
+        lines.append(f"lru_scan {label}: {err:.3g} <= {tol}")
+    return errs, lines
+
+
+class FirstCall:
+    """Wraps a kernel entry point during a run to keep the inputs of its
+    first call (the first local layer's attention, the first rglru layer's
+    scan).  Launch counting stays in the wrapped function."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.args = None
+
+    def __call__(self, *args, **kwargs):
+        if self.args is None:
+            self.args = (args, kwargs)
+        return self.fn(*args, **kwargs)
+
+
+def lm_config(dtype):
+    import dataclasses
+
+    from repro_torch.configs.base import get_arch
+    cfg = get_arch(LM_ARCH)
+    return dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
+
+
+def run_lm_prefill(torch, args, dev):
+    """One full-width bf16 prefill ``forward`` of B x S tokens with every
+    count reset just before and read just after; returns the captured first
+    inputs of each LM kernel and its launches."""
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.lru_scan import kernel as lru_kernel
+    from repro_torch.models import model as M
+
+    cfg = lm_config(torch.bfloat16)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = M.init_params(cfg, dev, generator=gen)
+    batch = M.make_dummy_batch(cfg, PREFILL_B, PREFILL_S, gen, dev)
+    torch.cuda.synchronize(dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"[lm_prefill] {cfg.name} full width and depth: {cfg.n_layers} "
+          f"layers {[m for m, _ in cfg.blocks()]}, d {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}, {n_params} parameters in bf16 "
+          f"({n_params * 2} bytes), random from seed {args.seed}, made in "
+          f"{time.perf_counter() - t0:.3f}s; batch {PREFILL_B} x seq "
+          f"{PREFILL_S}", flush=True)
+
+    flash_rec = FirstCall(flash_kernel.flash_attention)
+    lru_rec = FirstCall(lru_kernel.lru_scan)
+    flash_kernel.flash_attention, lru_kernel.lru_scan = flash_rec, lru_rec
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_all_counts()
+    try:
+        t1 = time.perf_counter()
+        logits = M.forward(params, batch, cfg)
+        torch.cuda.synchronize(dev)
+        cold_ms = (time.perf_counter() - t1) * 1e3
+    finally:
+        flash_kernel.flash_attention = flash_rec.fn
+        lru_kernel.lru_scan = lru_rec.fn
+    launches, paths = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(tuple(logits.shape) == (PREFILL_B, PREFILL_S, cfg.vocab_size),
+          f"prefill logits shape {tuple(logits.shape)}")
+    check(logits.dtype == torch.float32, f"logits dtype {logits.dtype}")
+    check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+    check(float(logits.abs().max()) <= cfg.logit_softcap,
+          "logits exceed the softcap")
+    n_local = sum(m == "local" for m, _ in cfg.blocks())
+    n_rglru = sum(m == "rglru" for m, _ in cfg.blocks())
+    check(launches["flash_attention"] == n_local,
+          f"flash launches {launches['flash_attention']} != {n_local}")
+    check(launches["lru_scan"] == n_rglru,
+          f"lru_scan launches {launches['lru_scan']} != {n_rglru}")
+    check(paths["flash_attention"]["ref"] == 0 and paths["lru_scan"]["ref"]
+          == 0, f"a plain version ran on the prefill path: {paths}")
+    del logits
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    logits = M.forward(params, batch, cfg)
+    torch.cuda.synchronize(dev)
+    warm_ms = (time.perf_counter() - t1) * 1e3
+    del logits
+    profile = profile_device(
+        torch, lambda: M.forward(params, batch, cfg),
+        {"flash_attention": "flash_attention_kernel",
+         "lru_scan": "lru_scan_kernel"})
+    print(f"[lm_prefill] forward cold {cold_ms:.3f} ms, warm {warm_ms:.3f} "
+          f"ms ({PREFILL_B * PREFILL_S / warm_ms * 1e3:.1f} tokens/s); "
+          f"device_peak_bytes {peak}; launches {launches}; paths {paths}",
+          flush=True)
+    print(f"[lm_prefill] profile of one more forward: {profile}",
+          flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return {"flash_attention": (flash_rec.args, launches["flash_attention"]),
+            "lru_scan": (lru_rec.args, launches["lru_scan"])}
+
+
+def run_lm_decode(torch, args, dev) -> str:
+    """Full-width float32 ``forward`` (both kernels) against token-by-token
+    ``decode_step`` (``_sdpa`` on the ring buffer, one-step recurrence)."""
+    from repro_torch.models import model as M
+    cfg = lm_config(torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    params = M.init_params(cfg, dev, generator=gen)
+    tokens = M.make_dummy_batch(cfg, DECODE_B, DECODE_S, gen, dev)["tokens"]
+    reset_all_counts()
+    t0 = time.perf_counter()
+    fwd = M.forward(params, {"tokens": tokens}, cfg)
+    torch.cuda.synchronize(dev)
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    launches, paths = read_counts()
+    check(launches["flash_attention"] > 0 and launches["lru_scan"] > 0,
+          f"fp32 forward missed a kernel: {launches}")
+    check(paths["flash_attention"]["ref"] == paths["lru_scan"]["ref"] == 0,
+          f"fp32 forward ran a plain version: {paths}")
+    top2 = torch.topk(fwd, 2, dim=-1)
+    margin = top2.values[..., 0] - top2.values[..., 1]
+    cache = M.init_cache(cfg, DECODE_B, DECODE_S, dev)
+    err = torch.zeros((), device=dev)
+    clear = torch.zeros((), dtype=torch.int64, device=dev)
+    flips = torch.zeros((), dtype=torch.int64, device=dev)
+    t0 = time.perf_counter()
+    for t in range(DECODE_S):
+        lg, cache = M.decode_step(params, cache, tokens[:, t:t + 1], t, cfg)
+        err = torch.maximum(err, (lg[:, 0] - fwd[:, t]).abs().max())
+        sure = margin[:, t] > 2 * DECODE_TOL
+        clear += sure.sum()
+        flips += (sure & (lg[:, 0].argmax(-1) != top2.indices[:, t, 0])).sum()
+    torch.cuda.synchronize(dev)
+    dec_ms = (time.perf_counter() - t0) * 1e3
+    err, clear, flips = float(err), int(clear), int(flips)
+    check(err < DECODE_TOL, f"decode vs forward: max abs logit error {err} "
+                            f">= {DECODE_TOL}")
+    check(flips == 0, f"{flips} top-1 ids differ where the forward's top-2 "
+                      f"margin exceeds {2 * DECODE_TOL}")
+    del params, cache, fwd, top2, margin
+    torch.cuda.empty_cache()
+    return (f"{cfg.name} float32 full width, B {DECODE_B} x S {DECODE_S} "
+            f"(ring buffer {min(DECODE_S, cfg.local_window)} wraps): forward "
+            f"{fwd_ms:.3f} ms with {launches['flash_attention']} flash and "
+            f"{launches['lru_scan']} lru_scan launches; {DECODE_S} "
+            f"decode_steps in {dec_ms:.3f} ms; max abs logit error {err:.6g} "
+            f"< {DECODE_TOL}; top-1 equal at all {clear} positions whose "
+            f"top-2 margin > {2 * DECODE_TOL}")
+
+
+def run_lm_serve(torch, args) -> str:
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+    out = io.StringIO()
+    argv = ["--arch", LM_ARCH, "--full", "--batch", "4", "--prompt-len",
+            "12", "--gen-len", "24", "--seed", str(args.seed)]
+    with contextlib.redirect_stdout(out):
+        toks = serve.main(argv)
+    check(tuple(toks.shape) == (4, 24), f"serve tokens {tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < 256000)).all()), "token ids out of "
+                                                       "the vocab")
+    torch.cuda.empty_cache()
+    return (f"python -m repro_torch.launch.serve {' '.join(argv)}: "
+            + " / ".join(out.getvalue().strip().splitlines()))
+
+
+def band_pairs(sq: int, skv: int, causal: bool, window) -> int:
+    """(query, key) pairs inside the mask: the work the inputs need."""
+    if window is None and not causal:
+        return sq * skv
+    total = 0
+    for i in range(sq):
+        hi = min(i, skv - 1)
+        lo = 0 if window is None else max(0, i - window + 1)
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def time_flash(torch, captured):
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    (q, k, v), kw = captured[0], captured[1]
+    causal, window = kw["causal"], kw["window"]
+    got, want = flash_pair(torch, flash_ops, q, k, v, causal, window)
+    diff, mag = (got - want).abs(), want.abs()
+    mean_abs = float(mag.mean())
+    if q.dtype == torch.bfloat16:
+        rel, atol = CAPTURED_BF16_REL, CAPTURED_BF16_ABS_OF_MEAN * mean_abs
+    else:
+        rel = atol = FLASH_TOL["float32"]
+    limit = atol + rel * mag
+    err, share = float(diff.max()), float((diff / limit).max())
+    tol = {"rule": "|kernel - plain| <= rel |plain| + abs", "rel": rel,
+           "abs": atol}
+    del got, want, diff, mag, limit
+    check(share <= 1.0, f"flash at the prefill's inputs {list(q.shape)}: "
+                        f"kernel != plain (max abs err {err}, mean |plain| "
+                        f"{mean_abs}, tolerance {tol}, worst error "
+                        f"{share} x its limit)")
+    B, Sq, H, D = q.shape
+    Skv, Hkv, Dv = v.shape[1], v.shape[2], v.shape[3]
+    ms = median_ms(torch, lambda: flash_ops.flash_attention(
+        q, k, v, causal=causal, window=window))
+    plain = median_ms(torch, lambda: flash_ops.flash_attention(
+        q, k, v, causal=causal, window=window, backend="ref"), iters=5,
+        warmup=1)
+    # the library yardstick: scaled_dot_product_attention with the same band
+    # mask, heads first, kv heads expanded (prepared outside the timing)
+    import torch.nn.functional as F
+    i = torch.arange(Sq, device=q.device)[:, None]
+    j = torch.arange(Skv, device=q.device)[None, :]
+    mask = j < Skv
+    if causal or window is not None:
+        mask = mask & (i - j >= 0)
+        if window is not None:
+            mask = mask & (i - j < window)
+    qh = q.transpose(1, 2).contiguous()
+    kh = k.repeat_interleave(H // Hkv, dim=2).transpose(1, 2).contiguous()
+    vh = v.repeat_interleave(H // Hkv, dim=2).transpose(1, 2).contiguous()
+    lib = median_ms(torch, lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask))
+    pairs = band_pairs(Sq, Skv, causal, window)
+    ops_ = 2.0 * B * H * pairs * (D + Dv)
+    nbytes = q.element_size() * (q.numel() + k.numel() + v.numel()
+                                 + B * Sq * H * Dv)
+    dtype = str(q.dtype).split(".")[-1]
+    t_ops = ops_ / PEAK_OPS_PER_S[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return err, tol, {
+        "mean_abs_plain": mean_abs, "max_err_over_limit": share,
+        "ms": ms, "kernel_ms": ms, "plain_ms": plain, "library_ms": lib,
+        "library": "torch.nn.functional.scaled_dot_product_attention with "
+                   "the band as a boolean mask",
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "band_flops": ops_, "bytes": nbytes,
+        "shape": {"q": list(q.shape), "k": list(k.shape),
+                  "v": list(v.shape), "causal": causal, "window": window,
+                  "dtype": dtype}}
+
+
+def time_lru(torch, captured):
+    from repro_torch.kernels.lru_scan import ops as lru_ops
+    (a, b), _ = captured
+    err, tol, ok = lru_err(torch, lru_ops, a, b)
+    check(ok, f"lru_scan at the prefill's inputs {list(a.shape)}: kernel != "
+              f"plain (max abs err {err}, tolerance {tol})")
+    ms = median_ms(torch, lambda: lru_ops.lru_scan(a, b))
+    plain = median_ms(torch, lambda: lru_ops.lru_scan(a, b, backend="ref"),
+                      iters=5, warmup=1)
+    nbytes = 3 * a.numel() * a.element_size()
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2.0 * a.numel() / PEAK_SCALAR_OPS_PER_S * 1e3
+    return err, tol, {
+        "ms": ms, "kernel_ms": ms, "plain_ms": plain, "library_ms": None,
+        "library": "none: no single PyTorch call computes the recurrence "
+                   "(torch.cumsum/cumprod compute other functions)",
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes,
+        "shape": {"a": list(a.shape), "dtype": str(a.dtype).split(".")[-1]}}
+
+
+def lm_timing(torch, captured, case_errs):
+    report = []
+    for name, timer in (("flash_attention", time_flash),
+                        ("lru_scan", time_lru)):
+        args, launches = captured[name]
+        err, tol, timing = timer(torch, args)
+        source, replaces = LM_KERNELS[name]
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches,
+                 "equal": err == 0.0, "max_abs_err": err,
+                 "cases_max_abs_err": case_errs[name], "tolerance": tol}
+        entry.update(timing)
+        report.append(entry)
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=float, default=1.0,
@@ -395,24 +846,35 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import _build
     from repro_torch.kernels.fct_count import kernel, ops
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.lru_scan import kernel as lru_kernel
     dev = torch.device("cuda", 0)
+    # float32 comparisons on the card run in full float32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     phase("card", t0, f"{torch.cuda.get_device_name(0)}, torch "
                       f"{torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    kernel.build()
-    phase("build", t0, f"{SOURCE} -> {kernel.library_path().name}, nvcc "
-                       f"{kernel.BUILD_SECONDS:.3f}s")
+    libs = [m.LIB for m in (kernel, flash_kernel, lru_kernel)]
+    _build.build_all(libs)
+    phase("build", t0, "; ".join(
+        f"{lib.source.relative_to(ROOT)} -> {lib.path.name}, nvcc "
+        f"{lib.build_seconds:.3f}s" for lib in libs) + " (started together)")
 
     t0 = time.perf_counter()
     errs, lines = run_kernel_cases(torch, np, dev, ops, kernel)
-    phase("kernels", t0, f"{len(lines)} cases bit-equal to the plain "
-                         f"version: {'; '.join(lines)}")
+    lm_errs, lm_lines = run_lm_kernel_cases(torch, np, dev)
+    phase("kernels", t0, f"{len(lines)} fct_count cases bit-equal to the "
+                         f"plain version: {'; '.join(lines)}; "
+                         f"{len(lm_lines)} LM kernel cases within tolerance "
+                         f"of the plain version: {'; '.join(lm_lines)}")
 
     t0 = time.perf_counter()
     launches, largest, session, req = run_main_path(torch, np, args, dev)
@@ -420,7 +882,8 @@ def main() -> int:
                       "warm queries built 0 programs and uploaded 0 columns")
 
     t0 = time.perf_counter()
-    phase("profile", t0, profile_warm_query(torch, session, req))
+    phase("profile", t0, profile_device(
+        torch, lambda: session.query(req), {"fct_count": "fct_count_kernel"}))
 
     t0 = time.perf_counter()
     report = []
@@ -441,9 +904,33 @@ def main() -> int:
                  "cases_max_abs_err": errs[name], "tolerance": 0}
         entry.update(time_kernel(torch, ops, tokens, weights, vocab))
         report.append(entry)
-    phase("timing", t0, "each kernel bit-equal to its plain version at the "
-                        "main path's largest call per dtype, then the median "
-                        "of 20 CUDA-event timings after 3 warm-up calls")
+    del largest, session, tokens, weights
+    torch.cuda.empty_cache()
+    phase("fct_timing", t0, "each fct_count instantiation bit-equal to its "
+                            "plain version at the main path's largest call "
+                            "per dtype, then the median of 20 CUDA-event "
+                            "timings after 3 warm-up calls")
+
+    t0 = time.perf_counter()
+    captured = run_lm_prefill(torch, args, dev)
+    phase("lm_prefill", t0, "8 flash_attention and 18 lru_scan launches, 0 "
+                            "plain-version calls, finite logits")
+
+    t0 = time.perf_counter()
+    phase("lm_decode", t0, run_lm_decode(torch, args, dev))
+
+    t0 = time.perf_counter()
+    phase("lm_serve", t0, run_lm_serve(torch, args))
+
+    t0 = time.perf_counter()
+    report += lm_timing(torch, captured, lm_errs)
+    phase("lm_timing", t0, "flash_attention and lru_scan within tolerance "
+                           "of their plain versions on the inputs captured "
+                           "from the prefill's first local and first rglru "
+                           "layer, then timed: kernel and scaled_dot_product"
+                           "_attention median of 20 CUDA-event timings after "
+                           "3 warm-up calls, plain versions median of 5")
+    phase("total", t_start, "wall time of the whole smoke, build included")
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,36 +1,26 @@
 """Loader and wrapper of the hand-written CUDA ``fct_count`` kernel.
 
 The source is ``csrc/fct_count.cu`` (see its header for the design and what
-bounds it).  It is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface at the first CUDA call — never at import —
-into ``build/repro_torch/`` at the checkout root, under a name keyed by a hash
-of the source, so an edited source rebuilds.  The library is loaded with
-``ctypes``.  When ``nvcc`` is missing or the build fails, a CUDA call raises:
-there is no fallback.
+bounds it).  ``kernels/_build.py`` compiles it with ``nvcc`` for ``sm_90a``
+into a shared library with a plain C interface at the first CUDA call — never
+at import — and loads it with ``ctypes``.  When ``nvcc`` is missing or the
+build fails, a CUDA call raises: there is no fallback.
 
 One exported C function per instantiation.  Each launches on PyTorch's
-current stream, never synchronises, and returns ``cudaGetLastError()``; the
-wrapper raises on anything but 0.  ``LAUNCHES`` counts launches per
+current stream, never synchronises, and returns ``cudaGetLastError()``;
+``LIB.launch`` raises on anything but 0.  ``LAUNCHES`` counts launches per
 instantiation and moves only where a kernel is launched.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
 from pathlib import Path
-from typing import Optional
 
 import torch
 
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import I32, I64, PTR
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fct_count.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
 
 #: weight dtype -> (C symbol, kernel name as reported in launch counts)
 INSTANTIATIONS = {
@@ -39,8 +29,15 @@ INSTANTIATIONS = {
     torch.float32: ("fct_count_float32", "fct_count_float32"),
 }
 
-#: launches per kernel instantiation since the last reset
-LAUNCHES = {name: 0 for _, name in INSTANTIATIONS.values()}
+#: C launcher -> argument kinds: tokens, weights, out, batch, rows,
+#: text_len, vocab, tile, rows_per_chunk, stream
+SYMBOLS = {symbol: (PTR, PTR, PTR, I64, I64, I32, I32, I32, I64, PTR)
+           for symbol, _ in INSTANTIATIONS.values()}
+
+LIB = _build.Library("fct_count", SOURCE, SYMBOLS,
+                     kernels=[name for _, name in INSTANTIATIONS.values()])
+#: launches per kernel instantiation since the last ``LIB.reset_launches()``
+LAUNCHES = LIB.launches
 
 THREADS = 256
 #: shared-memory bytes for one block's vocab tile of bins: int32 and float32
@@ -49,66 +46,6 @@ TILE_BYTES = 128 * 1024
 #: blocks the launch aims for: a few waves of one block per SM on an H100
 TARGET_BLOCKS = 4 * 132
 MIN_ROWS_PER_CHUNK = 64
-
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-BUILD_SECONDS: Optional[float] = None
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libfct_count-{digest}.so"
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
-        return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    raise RuntimeError("fct_count: nvcc not found (PATH, CUDA_HOME); the "
-                       "CUDA kernel cannot be built")
-
-
-def build() -> ctypes.CDLL:
-    """Compile (if needed) and load the kernel library; returns it.
-
-    Sets ``BUILD_SECONDS`` to the time spent compiling (0.0 when a library
-    built from the same source was already there)."""
-    global _lib, BUILD_SECONDS
-    with _lock:
-        if _lib is not None:
-            return _lib
-        path = library_path()
-        t0 = time.perf_counter()
-        if not path.exists():
-            path.parent.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"fct_count: nvcc failed ({res.returncode}):\n"
-                    f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
-            os.replace(tmp, path)
-        BUILD_SECONDS = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(path))
-        for symbol, _ in INSTANTIATIONS.values():
-            fn = getattr(lib, symbol)
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int64,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        _lib = lib
-        return lib
-
 
 def launch_shape(batch: int, rows: int, text_len: int, vocab: int,
                  itemsize: int):
@@ -158,14 +95,9 @@ def fct_count(tokens: torch.Tensor, weights: torch.Tensor,
     if B * R * L == 0:
         return out
     symbol, name = INSTANTIATIONS[weights.dtype]
-    fn = getattr(build(), symbol)
     tile, rows_per_chunk = launch_shape(B, R, L, vocab,
                                         weights.element_size())
-    with torch.cuda.device(tokens.device):
-        stream = torch.cuda.current_stream(tokens.device).cuda_stream
-        err = fn(tokens.data_ptr(), weights.data_ptr(), out.data_ptr(),
-                 B, R, L, vocab, tile, rows_per_chunk, stream)
-    if err != 0:
-        raise RuntimeError(f"fct_count launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    LIB.launch(symbol, name, tokens.device, tokens.data_ptr(),
+               weights.data_ptr(), out.data_ptr(), B, R, L, vocab, tile,
+               rows_per_chunk)
     return out

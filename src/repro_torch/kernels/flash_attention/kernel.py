@@ -1,0 +1,99 @@
+"""Loader and wrapper of the hand-written CUDA ``flash_attention`` kernel.
+
+The source is ``csrc/flash_attention.cu`` (see its header for the design and
+what bounds it).  ``kernels/_build.py`` compiles it with ``nvcc`` for
+``sm_90a`` at the first CUDA call — never at import — and loads it with
+``ctypes``.  When ``nvcc`` is missing or the build fails, a CUDA call raises:
+there is no fallback.  Each exported C function launches on PyTorch's
+current stream, never synchronises, and returns ``cudaGetLastError()`` (or
+the error of raising the kernel's shared-memory limit); ``LIB.launch``
+raises on anything but 0.  ``LAUNCHES`` moves only where the kernel is
+launched.
+
+The kernel reads q, k and v in the reference's ``[B, S, H, D]`` layout
+through their strides (the last dimension must be contiguous), so the
+model's projections go in without a copy; the output is a new contiguous
+``[B, Sq, H, Dv]`` tensor.
+"""
+from __future__ import annotations
+
+import math
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import F32, I32, I64, PTR
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+NAME = "flash_attention"
+
+#: input dtype -> C launcher
+INSTANTIATIONS = {torch.float32: "flash_attention_float32",
+                  torch.bfloat16: "flash_attention_bfloat16"}
+#: q, k, v, o, 12 strides, batch, heads, kv_heads, sq, skv, d, dv, causal,
+#: window, scale, stream
+SYMBOLS = {s: (PTR,) * 4 + (I64,) * 12 + (I32,) * 9 + (F32, PTR)
+           for s in INSTANTIATIONS.values()}
+#: (D, Dv) pairs the source instantiates
+HEAD_DIMS = frozenset({(16, 16), (32, 32), (32, 16), (64, 64), (64, 32),
+                       (128, 128), (128, 64), (256, 256), (256, 128)})
+MAX_GRID_Y = 65535
+
+LIB = _build.Library(NAME, SOURCE, SYMBOLS)
+#: launches since the last ``LIB.reset_launches()``
+LAUNCHES = LIB.launches
+
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Attention on the card: q [B,Sq,H,D], k [B,Skv,Hkv,D],
+    v [B,Skv,Hkv,Dv], all CUDA tensors of one dtype (float32 or bfloat16)
+    on one device -> [B,Sq,H,Dv] in that dtype.  ``window`` keeps keys with
+    0 <= q_pos - k_pos < window and implies causal.  Raises on anything the
+    kernel does not take."""
+    tensors = (q, k, v)
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError("flash_attention kernel needs CUDA tensors, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must be on one device")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in INSTANTIATIONS:
+        raise TypeError(f"flash_attention takes q, k, v of one dtype in "
+                        f"{sorted(map(str, INSTANTIATIONS))}, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.dim() == k.dim() == v.dim() == 4):
+        raise ValueError("need q [B,Sq,H,D], k [B,Skv,Hkv,D], v [B,Skv,Hkv,Dv]")
+    B, Sq, H, D = q.shape
+    _, Skv, Hkv, Dv = v.shape
+    if k.shape != (B, Skv, Hkv, D) or v.shape[0] != B:
+        raise ValueError(f"shapes disagree: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if Hkv == 0 or H % Hkv:
+        raise ValueError(f"{H} heads do not split into {Hkv} kv groups")
+    if (D, Dv) not in HEAD_DIMS:
+        raise ValueError(f"no kernel for head dims (D, Dv) = ({D}, {Dv}); "
+                         f"built: {sorted(HEAD_DIMS)}")
+    if B * H > MAX_GRID_Y:
+        raise ValueError(f"batch*heads {B * H} exceeds the grid's y limit")
+    if max(Sq, Skv) >= 2 ** 31:
+        raise ValueError("sequence lengths must stay below 2^31")
+    if any(t.stride(-1) != 1 for t in tensors):
+        raise ValueError("the last dimension of q, k and v must be "
+                         "contiguous")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    if o.numel() == 0:
+        return o
+    if Skv == 0:
+        return o.zero_()
+    strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+    LIB.launch(INSTANTIATIONS[q.dtype], NAME, q.device, q.data_ptr(),
+               k.data_ptr(), v.data_ptr(), o.data_ptr(), *strides, B, H, Hkv,
+               Sq, Skv, D, Dv, int(bool(causal)), int(window or 0),
+               1.0 / math.sqrt(D))
+    return o

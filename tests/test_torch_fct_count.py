@@ -10,6 +10,7 @@ import torch
 
 from repro.kernels.fct_count import ref as jax_ref
 from repro.kernels.fct_count.ops import weighted_histogram as jax_histogram
+from repro_torch.kernels import _build
 from repro_torch.kernels.fct_count import kernel, ops
 from repro_torch.kernels.fct_count.ops import weighted_histogram
 
@@ -163,9 +164,8 @@ def test_launch_shape_tiles_the_vocab():
 def test_failed_build_raises(tmp_path, monkeypatch):
     src = tmp_path / "k.cu"
     src.write_text("// nothing\n")
-    monkeypatch.setattr(kernel, "SOURCE", src)
-    monkeypatch.setattr(kernel, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(kernel, "_lib", None)
-    monkeypatch.setattr(kernel, "_nvcc", lambda: "false")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "nvcc", lambda: "false")
+    lib = _build.Library("fct_count", src, kernel.SYMBOLS)
     with pytest.raises(RuntimeError, match="nvcc failed"):
-        kernel.build()
+        lib.load()

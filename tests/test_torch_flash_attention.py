@@ -1,0 +1,124 @@
+"""The port's plain ``flash_attention`` (the version a CPU tensor takes)
+against the JAX package's ``flash_attention`` with ``backend="ref"`` and
+with ``backend="interpret"`` (the Pallas kernel in interpret mode), on the
+same numpy-seeded inputs, in the reference's ``[B, S, H, D]`` layout.
+
+Tolerances are the reference's own (``tests/test_kernels.py``): 2e-5 in
+float32, 4e-2 in bfloat16 (one bf16 rounding of outputs of magnitude ~1,
+taken after float32 math on both sides).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ops import flash_attention as jax_flash
+from repro_torch.kernels.flash_attention import kernel, ops
+
+TOL = {"float32": 2e-5, "bfloat16": 4e-2}
+TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+CASES = [  # b, s, h, hkv, d, dv, causal, window, block_q, block_k
+    (2, 128, 4, 2, 32, 32, True, None, 64, 32),    # GQA causal
+    (1, 200, 6, 1, 16, 16, True, 64, 64, 32),      # MQA + local window, ragged S
+    (2, 96, 4, 4, 32, 16, False, None, 64, 32),    # encoder, dv != d (MLA shape)
+    (1, 64, 2, 2, 128, 128, True, None, 64, 32),
+    # MQA at D = 256 with S > window, a window that is not a multiple of
+    # the block, ragged S: rows whose first visited block lies wholly
+    # outside their window
+    (1, 300, 2, 1, 256, 256, True, 100, 128, 128),
+]
+
+
+def _inputs(case, dtype, seed):
+    b, s, h, hkv, d, dv = case[:6]
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, s, h, d)).astype(np.float32)
+    k = rng.normal(size=(b, s, hkv, d)).astype(np.float32)
+    v = rng.normal(size=(b, s, hkv, dv)).astype(np.float32)
+    # both sides get the same values, rounded to the working dtype once
+    return [torch.from_numpy(x).to(TORCH_DT[dtype]) for x in (q, k, v)]
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_reference(case, dtype):
+    causal, window, bq, bk = case[6:]
+    tq, tk, tv = _inputs(case, dtype, seed=sum(case[:6]))
+    ops.reset_path_counts()
+    got = ops.flash_attention(tq, tk, tv, causal=causal, window=window,
+                              block_q=bq, block_k=bk)
+    assert ops.PATH_COUNTS == {"ref": 1, "cuda": 0}
+    assert got.dtype == TORCH_DT[dtype]
+    assert got.shape == (*tq.shape[:3], tv.shape[-1])
+    jq, jk, jv = (jnp.asarray(t.float().numpy()).astype(JAX_DT[dtype])
+                  for t in (tq, tk, tv))
+    tol = TOL[dtype]
+    for backend in ("ref", "interpret"):
+        want = jax_flash(jq, jk, jv, causal=causal, window=window,
+                         block_q=bq, block_k=bk, backend=backend)
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   atol=tol, rtol=tol, err_msg=backend)
+
+
+def test_plain_matches_dense_softmax():
+    """The blocked plain version against one dense masked softmax."""
+    tq, tk, tv = _inputs((1, 77, 4, 2, 16, 16), "float32", seed=5)
+    got = ops.flash_attention(tq, tk, tv, causal=True, window=20,
+                              block_q=16, block_k=16)
+    qg = tq.reshape(1, 77, 2, 2, 16)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, tk) / 4.0
+    i = torch.arange(77)
+    ok = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < 20)
+    w = torch.softmax(s.masked_fill(~ok, float("-inf")), dim=-1)
+    want = torch.einsum("bhgqk,bkhd->bqhgd", w, tv).reshape(1, 77, 4, 16)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_kernel_refuses_what_it_does_not_take():
+    q = torch.ones(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ops.flash_attention(q, q, q, backend="cuda")
+    with pytest.raises(ValueError, match="unknown flash_attention backend"):
+        ops.flash_attention(q, q, q, backend="pallas")
+    assert (16, 16) in kernel.HEAD_DIMS and (256, 256) in kernel.HEAD_DIMS
+    assert kernel.LAUNCHES["flash_attention"] == 0
+
+
+def test_smoke_bf16_rule_tells_rounding_from_a_window_error():
+    """``chip_smoke.py`` holds the kernel at the prefill's own bf16 inputs
+    by |got - want| <= 2^-7 |want| + 2^-8 mean|want|, because there the
+    outputs (mean magnitude about 0.06) are no larger than the absolute
+    term of the 4e-2 rule.  At
+    inputs of the same statistics (q, k, v ~ N(0, 1), MQA, D 256, window
+    2048, S past the window), two summation orders of the plain version
+    stay within the rule, and a window one key too wide, which the 4e-2
+    rule lets through, does not."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to(torch.bfloat16)
+               for shape in ((1, 2304, 2, 256), (1, 2304, 1, 256),
+                             (1, 2304, 1, 256)))
+
+    def plain(window, block):
+        return ops.flash_attention(q, k, v, causal=True, window=window,
+                                   block_q=block, block_k=block).float()
+
+    want = plain(2048, 64)
+    limit = (smoke.CAPTURED_BF16_ABS_OF_MEAN * float(want.abs().mean())
+             + smoke.CAPTURED_BF16_REL * want.abs())
+    reordered = (plain(2048, 512) - want).abs()
+    assert float(reordered.max()) > 0          # the orders do differ
+    assert bool((reordered <= limit).all())
+    wide = (plain(2049, 64) - want).abs()
+    tol = TOL["bfloat16"]
+    assert bool((wide <= tol + tol * want.abs()).all())
+    assert not bool((wide <= limit).all())

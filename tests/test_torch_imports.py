@@ -17,7 +17,7 @@ import torch
 import repro_torch
 from repro_torch.api import FCTSession
 from repro_torch.data.tpch import TpchConfig, generate
-from repro_torch.kernels.fct_count import kernel
+from repro_torch.kernels import _build
 from repro_torch.launch.mesh import make_worker_mesh
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -49,7 +49,9 @@ def test_no_jax_or_reference_imports():
 def test_every_module_imports_without_a_card():
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                    "repro_torch.")]
-    assert "repro_torch.kernels.fct_count.kernel" in names
+    for kernel_module in ("fct_count", "flash_attention", "lru_scan"):
+        assert f"repro_torch.kernels.{kernel_module}.kernel" in names
+    assert "repro_torch.launch.serve" in names
     for name in names:
         importlib.import_module(name)
 
@@ -65,6 +67,23 @@ def test_cuda_is_the_default_device():
     with pytest.raises(RuntimeError, match="CUDA device requested"):
         make_worker_mesh(2, "cuda")
     assert FCTSession(schema, device="cpu").device.type == "cpu"
+
+
+def test_lm_entry_points_default_to_cuda():
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    cfg = get_arch("recurrentgemma-2b").reduced()
+    if torch.cuda.is_available():
+        assert M.init_params(cfg).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        M.init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        M.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        serve.main(["--arch", "recurrentgemma-2b"])
+    assert M.init_params(cfg, "cpu").device.type == "cpu"
 
 
 def test_fct_run_on_cpu(capsys):
@@ -91,4 +110,4 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
 def test_ignore_lists_the_kernel_build_directory():
     # the CUDA library is built into build/repro_torch/ and never tracked
     assert "build/" in (ROOT / ".gitignore").read_text().split()
-    assert kernel.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
+    assert _build.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
