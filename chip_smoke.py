@@ -9,6 +9,10 @@ Phases, one line each, then a kernels line and a last line with the device:
   2. build      compile the hand-written CUDA kernels from the checkout's
                 sources (``nvcc``, one process per source, started
                 together): fct_count, flash_attention, lru_scan.
+     build_report  ptxas's registers and spills of each fct_count and
+                flash_attention kernel, and the HMMA (tensor-core)
+                instructions ``cuobjdump -sass`` finds in each: every bf16
+                flash instantiation must have some, the float32 one none.
   3. kernels    each kernel against its plain PyTorch version on the card.
                 fct_count: int32 (random, past 2^24, wrapping past 2^31),
                 int64 (past 2^33, wrapping near 2^62), float32 (exact
@@ -35,7 +39,11 @@ Phases, one line each, then a kernels line and a last line with the device:
   6. fct_timing each fct_count instantiation at the main path's largest call
                 (its actual inputs): held against the plain version on those
                 inputs (bit-equal), then timed: kernel, plain version, one
-                ``index_add_`` on prepared inputs, and the byte bound.
+                ``index_add_`` on prepared inputs, the kernel on controls of
+                the same shape (uniform tokens: no hot bins; every weight 1:
+                every token read; both), and the byte bound of what the inputs need (weights, the tokens
+                of rows whose weight is not 0, the output) beside the padded
+                bound that reads every token; the share of zero-weight rows.
   7. lm_prefill recurrentgemma-2b (arXiv:2402.19427) at full width and
                 depth in bf16, random weights from ``--seed``: one prefill
                 ``forward`` of B 1 x S 8 192 tokens (cut from the dry-run's
@@ -69,6 +77,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -113,6 +123,87 @@ def card_line() -> str:
                          text=True, timeout=60)
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
     return out.stdout.strip().splitlines()[0]
+
+
+# --- phase 2: what the compiler made of each kernel --------------------------
+
+_ARG_TYPES = {"f": "float32", "i": "int32", "l": "int64",
+              "13__nv_bfloat16": "bfloat16"}
+
+
+def kernel_name(mangled: str) -> str:
+    """``flash_attention_mma_kernel<256,256>`` from a mangled symbol."""
+    m = re.search(r"\d+([a-z_]+kernel)I(.*?)EEv", mangled)
+    if m is None:
+        return mangled
+    args = re.findall(r"Li(\d+)E", m.group(2)) or [
+        _ARG_TYPES.get(m.group(2), m.group(2))]
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
+def ptxas_report(log: str) -> dict:
+    """kernel -> (registers, spill store bytes, spill load bytes) from what
+    ``nvcc -Xptxas=-v`` printed."""
+    report, name, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spills = kernel_name(m.group(1)), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            report[name] = (int(m.group(1)), *spills)
+    return report
+
+
+def sass_hmma(lib_path) -> dict:
+    """kernel -> number of HMMA (tensor-core) instructions in its SASS, by
+    ``cuobjdump -sass``; empty when the toolkit has no cuobjdump."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    tool = shutil.which("cuobjdump") or (
+        str(Path(CUDA_HOME) / "bin" / "cuobjdump") if CUDA_HOME else None)
+    if not tool or not Path(tool).exists():
+        return {}
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr}")
+    counts, name = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = kernel_name(m.group(1))
+            counts[name] = 0
+        elif name and "HMMA" in line:
+            counts[name] += 1
+    return counts
+
+
+def build_report(libs) -> str:
+    """Registers, spills and HMMA count of every kernel of ``libs``; fails
+    unless every bf16 flash instantiation runs on the tensor cores and the
+    float32 one does not."""
+    parts, hmma_all = [], {}
+    for lib in libs:
+        regs = ptxas_report(lib.build_log or "")
+        hmma = sass_hmma(lib.path)
+        hmma_all.update(hmma)
+        for name in sorted(set(regs) | set(hmma)):
+            r = regs.get(name)
+            rs = (f"{r[0]} registers, spill stores/loads {r[1]}/{r[2]} B"
+                  if r else "ptxas not run here (library already built)")
+            parts.append(f"{name}: {rs}, HMMA {hmma.get(name, 'not measured')}")
+    mma = {k: v for k, v in hmma_all.items()
+           if k.startswith("flash_attention_mma_kernel")}
+    if hmma_all:
+        check(len(mma) == 9 and all(v > 0 for v in mma.values()),
+              f"bf16 flash kernels without tensor-core instructions: {mma}")
+        check(all(v == 0 for k, v in hmma_all.items()
+                  if k.startswith("flash_attention_kernel")),
+              "the float32 flash kernel uses the tensor cores")
+    return "; ".join(parts)
 
 
 # --- phase 3: each kernel against its plain version --------------------------
@@ -383,7 +474,13 @@ def compare_at_shape(torch, ops, name, tokens, weights, vocab):
     return err
 
 
-def time_kernel(torch, ops, tokens, weights, vocab):
+def time_kernel(torch, ops, tokens, weights, vocab, seed):
+    """Kernel, plain version and ``index_add_`` on one main-path call's
+    inputs; beside them the kernel on controls of the same shape: tokens
+    uniform over ``[1, vocab)`` (no hot bins), every weight 1 (every token
+    read), and both.  The bound counts what the inputs need once rows of
+    weight 0 are skipped: the weights, the tokens of the other rows, the
+    output; the padded bound reads every token."""
     B, R, L = tokens.shape
     w_item = weights.element_size()
     ms = median_ms(torch, lambda: ops.weighted_histogram(tokens, weights,
@@ -401,12 +498,30 @@ def time_kernel(torch, ops, tokens, weights, vocab):
     lib = median_ms(torch, lambda: torch.zeros(
         B * vocab, dtype=weights.dtype, device=tokens.device).index_add_(
             0, idx, wflat))
-    nbytes = B * R * L * 4 + B * R * w_item + B * vocab * w_item
+    del tok, keep, idx, wflat
+    # controls: uniform tokens (no hot bins), and every weight 1 (every
+    # token read), each beside the main path's own tokens and weights
+    gen = torch.Generator(device=tokens.device).manual_seed(seed)
+    uniform = torch.randint(1, vocab, tokens.shape, generator=gen,
+                            dtype=torch.int32, device=tokens.device)
+    ones = torch.ones_like(weights)
+    controls = {name: median_ms(torch, lambda t=t, w=w: ops.weighted_histogram(
+        t, w, vocab)) for name, t, w in (
+            ("uniform_tokens_ms", uniform, weights),
+            ("all_rows_ms", tokens, ones),
+            ("all_rows_uniform_tokens_ms", uniform, ones))}
+    del uniform, ones
+    torch.cuda.empty_cache()
+    nonzero = int((weights != 0).sum())
+    nbytes = B * R * w_item + nonzero * L * 4 + B * vocab * w_item
+    padded = B * R * L * 4 + B * R * w_item + B * vocab * w_item
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = B * R * L / PEAK_SCALAR_OPS_PER_S * 1e3
+    t_ops = nonzero * L / PEAK_SCALAR_OPS_PER_S * 1e3
     return {"ms": ms, "kernel_ms": ms, "plain_ms": plain, "library_ms": lib,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "padded_bound_ms": padded / PEAK_BYTES_PER_S * 1e3,
+            "zero_weight_share": 1 - nonzero / (B * R), **controls,
             "shape": [B, R, L, vocab]}
 
 
@@ -635,7 +750,7 @@ def run_lm_prefill(torch, args, dev):
     del logits
     profile = profile_device(
         torch, lambda: M.forward(params, batch, cfg),
-        {"flash_attention": "flash_attention_kernel",
+        {"flash_attention": "flash_attention",
          "lru_scan": "lru_scan_kernel"})
     print(f"[lm_prefill] forward cold {cold_ms:.3f} ms, warm {warm_ms:.3f} "
           f"ms ({PREFILL_B * PREFILL_S / warm_ms * 1e3:.1f} tokens/s); "
@@ -867,6 +982,8 @@ def main() -> int:
     phase("build", t0, "; ".join(
         f"{lib.source.relative_to(ROOT)} -> {lib.path.name}, nvcc "
         f"{lib.build_seconds:.3f}s" for lib in libs) + " (started together)")
+    t0 = time.perf_counter()
+    phase("build_report", t0, build_report(libs[:2]))
 
     t0 = time.perf_counter()
     errs, lines = run_kernel_cases(torch, np, dev, ops, kernel)
@@ -902,14 +1019,25 @@ def main() -> int:
                  "replaces": replaces, "launches": launches[name],
                  "equal": err == 0.0, "max_abs_err": err,
                  "cases_max_abs_err": errs[name], "tolerance": 0}
-        entry.update(time_kernel(torch, ops, tokens, weights, vocab))
+        entry.update(time_kernel(torch, ops, tokens, weights, vocab,
+                                 args.seed))
         report.append(entry)
+        print(f"[fct_timing] {name} at {entry['shape']}: zero-weight rows "
+              f"{entry['zero_weight_share']:.4f} of "
+              f"{entry['shape'][0] * entry['shape'][1]}; kernel "
+              f"{entry['ms']:.4f} ms, uniform tokens "
+              f"{entry['uniform_tokens_ms']:.4f} ms; every weight 1 "
+              f"{entry['all_rows_ms']:.4f} ms, with uniform tokens "
+              f"{entry['all_rows_uniform_tokens_ms']:.4f} ms; bound "
+              f"{entry['bound_ms']:.4f} ms on the non-zero rows' bytes, "
+              f"{entry['padded_bound_ms']:.4f} ms on every token", flush=True)
     del largest, session, tokens, weights
     torch.cuda.empty_cache()
     phase("fct_timing", t0, "each fct_count instantiation bit-equal to its "
                             "plain version at the main path's largest call "
                             "per dtype, then the median of 20 CUDA-event "
-                            "timings after 3 warm-up calls")
+                            "timings after 3 warm-up calls, and the same on "
+                            "uniform tokens")
 
     t0 = time.perf_counter()
     captured = run_lm_prefill(torch, args, dev)

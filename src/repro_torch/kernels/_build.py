@@ -30,7 +30,7 @@ import torch
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # ctypes argument kinds of the exported C functions
 PTR, I32, I64, F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
@@ -64,6 +64,9 @@ class Library:
         self.launches: Dict[str, int] = {k: 0 for k in (kernels or (name,))}
         #: seconds ``nvcc`` took (about 0 when the library was already built)
         self.build_seconds: Optional[float] = None
+        #: what ``nvcc`` printed when it built the library here (ptxas's
+        #: registers, spills and shared memory per kernel), else None
+        self.build_log: Optional[str] = None
         self._lock = threading.Lock()
         self._lib: Optional[ctypes.CDLL] = None
 
@@ -99,6 +102,7 @@ class Library:
             raise RuntimeError(f"{self.name}: nvcc failed ({res.returncode}):"
                                f"\n{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
         os.replace(tmp, path)
+        self.build_log = res.stdout + res.stderr
 
     def launch(self, symbol: str, kernel: str, device: torch.device,
                *args) -> None:

@@ -11,27 +11,46 @@
 //   out[b, v] += sum_row weights[b, row] * #{j : tokens[b, row, j] == v}
 // PAD (0) is never counted, tokens outside [0, vocab) are dropped, and the
 // integer instantiations are exact modulo 2^width of the weight type,
-// wrap-around included (integer atomics are exact and order-independent).
+// wrap-around included (integer adds are exact and order-independent).
 // The TPU kernel's split-limb float32 matmul exists only because the TPU's
 // matrix unit accumulates in float; none of it carries over.
 //
-// Design: grid (row_chunks, vocab_tiles, batch), 256 threads a block.  Each
-// block holds the bins of one vocab tile in dynamic shared memory, counts its
-// chunk of rows into them with shared-memory atomics, then merges every
-// non-zero bin into `out` with one global atomic.  The caller zeroes `out`.
+// Bound: device-memory bytes.  A row whose weight is 0 adds nothing, so its
+// tokens need not be read: one launch must read the B*R weights, the tokens
+// of the rows with a non-zero weight, and write B*V bins, against 3.35 TB/s
+// on an H100 SXM; the arithmetic is one add per token.  On the FCT main path
+// most rows weigh 0 (padding to a power of two, rows that join nothing).
 //
-// Bound: device-memory bytes.  One launch reads B*R*L*4 token bytes plus
-// B*R*w weight bytes once per vocab tile and writes B*V*w, against
-// 3.35 TB/s on an H100 SXM; the arithmetic is one add per token.  The likely
-// gap to that bound is contention of shared-memory atomics on the Zipf-hot
-// bins of real text (a few ids take a large share of all tokens); that gap
-// is measured and recorded, not yet worked on.
+// Design: grid (row_chunks x vocab_tiles, batch), vocab tile fastest, so the
+// blocks of one row chunk run side by side and the second read of a chunk
+// (int64 bins need two 128 KB tiles at V = 32 768) hits L2.  1 024 threads a
+// block, one block an SM: 32 warps share one vocab tile of bins in shared
+// memory.
+//   - Rows in groups of 32.  A warp loads the 32 weights of each of its
+//     next 4 groups in one read each, all 4 in flight together, and skips a
+//     group whose weights are all 0 without touching its tokens.  Otherwise its
+//     lanes take the group's tokens in order, 16 bytes (int4) a load when
+//     L % 4 == 0 and the tokens are 16-byte aligned, else 4 bytes, up to 4
+//     loads in flight a lane; a lane skips the loads of rows whose weight
+//     (shuffled from the lane that read it) is 0.  No division per token:
+//     the (row, column) of a lane's next load is stepped by constants.
+//   - Bins.  int32 and float32 bins take the shared-memory atomics of
+//     their width.  int64 bins are two 32-bit words: the low word's atomic
+//     returns its old value, and the lane whose add wrapped it carries one
+//     into the high word (64-bit shared atomics are compare-and-swap loops
+//     that spin on the Zipf-hot bins of real text).  Integer adds are exact
+//     modulo 2^width in any order.
+//   - After the chunk, each non-zero bin is merged into `out` with one
+//     global atomic.  The caller zeroes `out`.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 4;  // token loads a lane keeps in flight
+constexpr int kGroups = 4;  // 32-row groups whose weights a warp loads at once
 
 __device__ __forceinline__ void atomic_add(int32_t* p, int32_t v) {
   atomicAdd(reinterpret_cast<int*>(p), static_cast<int>(v));
@@ -47,42 +66,142 @@ __device__ __forceinline__ void atomic_add(float* p, float v) {
   atomicAdd(p, v);
 }
 
+// one vocab tile of bins in shared memory: `words` 4-byte words a bin
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-fct_count_kernel(const int32_t* __restrict__ tokens,
-                 const T* __restrict__ weights, T* __restrict__ out,
-                 int64_t rows, int text_len, int vocab, int tile,
-                 int64_t rows_per_chunk) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* bins = reinterpret_cast<T*>(smem_raw);
+struct Bins {
+  static constexpr int words = 1;
+  T* bin;
+  __device__ explicit Bins(void* smem, int) : bin(static_cast<T*>(smem)) {}
+  __device__ void zero(int i) { bin[i] = T(0); }
+  __device__ void add(int i, T w) { atomic_add(&bin[i], w); }
+  __device__ T get(int i) const { return bin[i]; }
+};
 
-  const int64_t b = blockIdx.z;
-  const int v0 = static_cast<int>(blockIdx.y) * tile;
-  const int width = min(tile, vocab - v0);
-  for (int i = threadIdx.x; i < width; i += kThreads) bins[i] = T(0);
-  __syncthreads();
+// int64 bins as a low and a high 32-bit word: shared-memory atomics add 32
+// bits natively and 64 bits only by a compare-and-swap loop, which spins on
+// the hot bins.  The low word's add returns its old value, so the lane whose
+// add wrapped it carries one into the high word: exact modulo 2^64.
+template <>
+struct Bins<int64_t> {
+  static constexpr int words = 2;
+  uint32_t* lo;
+  uint32_t* hi;
+  __device__ Bins(void* smem, int width)
+      : lo(static_cast<uint32_t*>(smem)), hi(lo + width) {}
+  __device__ void zero(int i) { lo[i] = hi[i] = 0u; }
+  __device__ void add(int i, int64_t w) {
+    const uint64_t u = static_cast<uint64_t>(w);
+    const uint32_t wl = static_cast<uint32_t>(u);
+    const uint32_t old = atomicAdd(&lo[i], wl);
+    const uint32_t up = static_cast<uint32_t>(u >> 32) + (old + wl < old);
+    if (up != 0u) atomicAdd(&hi[i], up);
+  }
+  __device__ int64_t get(int i) const {
+    return static_cast<int64_t>((static_cast<uint64_t>(hi[i]) << 32) | lo[i]);
+  }
+};
 
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * rows_per_chunk;
-  const int64_t row1 = min(rows, row0 + rows_per_chunk);
-  if (row0 < row1) {
-    const int32_t* tok = tokens + (b * rows + row0) * text_len;
-    const T* w = weights + b * rows + row0;
-    // the wrapper keeps rows_per_chunk * text_len below 2^31
-    const int n = static_cast<int>((row1 - row0) * text_len);
-    for (int e = threadIdx.x; e < n; e += kThreads) {
-      const int t = tok[e];
-      // PAD, negative ids and ids outside this tile are not counted here
-      if (t != 0 && t >= v0 && t < v0 + width) {
-        const T wv = w[e / text_len];
-        if (wv != T(0)) atomic_add(&bins[t - v0], wv);
+// PAD, negative ids and ids outside this tile are not counted here
+template <typename T>
+__device__ __forceinline__ void count(int t, T w, Bins<T>& bins, int v0,
+                                      int width) {
+  if (t != 0 && t >= v0 && t < v0 + width) bins.add(t - v0, w);
+}
+template <typename T>
+__device__ __forceinline__ void count_unit(int t, T w, Bins<T>& bins, int v0,
+                                           int width) {
+  count(t, w, bins, v0, width);
+}
+template <typename T>
+__device__ __forceinline__ void count_unit(int4 t, T w, Bins<T>& bins,
+                                           int v0, int width) {
+  count(t.x, w, bins, v0, width);
+  count(t.y, w, bins, v0, width);
+  count(t.z, w, bins, v0, width);
+  count(t.w, w, bins, v0, width);
+}
+
+// rows [row0, row1) of one batch entry; Unit is int4 (4 tokens) or int
+template <typename T, typename Unit>
+__device__ __forceinline__ void count_rows(const Unit* __restrict__ units,
+                                           const T* __restrict__ w,
+                                           int64_t row0, int64_t row1, int q,
+                                           Bins<T>& bins, int v0, int width) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  // in a group of 32 rows of q units each, lane takes units lane + 32 i
+  // (i < q): unit j is row j / q, column j % q; j += 32 steps the row by
+  // 32 / q and the column by 32 % q
+  const int dr = 32 / q, dc = 32 % q;
+  const int rr0 = lane / q, cc0 = lane % q;
+  constexpr int64_t kStride = 32 * kWarps;
+  // a warp takes the groups at row0 + 32 warp + k kStride, kGroups of them
+  // at a time: their weights are loaded together, so that a run of
+  // zero-weight rows keeps kGroups loads in flight a lane
+  for (int64_t g0 = row0 + 32 * warp; g0 < row1; g0 += kGroups * kStride) {
+    T wg[kGroups];
+#pragma unroll
+    for (int k = 0; k < kGroups; ++k) {
+      const int64_t r = g0 + k * kStride + lane;
+      wg[k] = r < row1 ? w[r] : T(0);
+    }
+#pragma unroll
+    for (int k = 0; k < kGroups; ++k) {
+      const T wr = wg[k];
+      if (__ballot_sync(0xffffffffu, wr != T(0)) == 0) continue;
+      const Unit* ug = units + (g0 + k * kStride) * q;
+      int rr = rr0, cc = cc0;
+      for (int i = 0; i < q; i += kUnroll) {
+        Unit val[kUnroll] = {};
+        T wv[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const T x = __shfl_sync(0xffffffffu, wr, rr & 31);
+          wv[u] = i + u < q ? x : T(0);
+          if (wv[u] != T(0)) val[u] = __ldg(ug + rr * q + cc);
+          cc += dc;
+          rr += dr;
+          if (cc >= q) {
+            cc -= q;
+            ++rr;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+          if (wv[u] != T(0)) count_unit(val[u], wv[u], bins, v0, width);
       }
     }
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+fct_count_kernel(const int32_t* __restrict__ tokens,
+                 const T* __restrict__ weights, T* __restrict__ out,
+                 int64_t rows, int text_len, int vocab, int tile, int tiles,
+                 int64_t rows_per_chunk) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int64_t b = blockIdx.y;
+  const int64_t chunk = blockIdx.x / tiles;
+  const int v0 = static_cast<int>(blockIdx.x % tiles) * tile;
+  const int width = min(tile, vocab - v0);
+  Bins<T> bins(smem_raw, width);
+  for (int i = threadIdx.x; i < width; i += kThreads) bins.zero(i);
+  __syncthreads();
+
+  const int64_t row0 = chunk * rows_per_chunk;
+  const int64_t row1 = min(rows, row0 + rows_per_chunk);
+  const int32_t* tok = tokens + b * rows * text_len;
+  const T* w = weights + b * rows;
+  if (text_len % 4 == 0 && reinterpret_cast<uintptr_t>(tokens) % 16 == 0)
+    count_rows(reinterpret_cast<const int4*>(tok), w, row0, row1,
+               text_len / 4, bins, v0, width);
+  else
+    count_rows(tok, w, row0, row1, text_len, bins, v0, width);
   __syncthreads();
 
   T* dst = out + b * vocab + v0;
   for (int i = threadIdx.x; i < width; i += kThreads) {
-    const T c = bins[i];
+    const T c = bins.get(i);
     if (c != T(0)) atomic_add(&dst[i], c);
   }
 }
@@ -93,16 +212,17 @@ cudaError_t launch(const void* tokens, const void* weights, void* out,
                    int tile, int64_t rows_per_chunk, void* stream) {
   const int64_t tiles = (vocab + tile - 1) / tile;
   const int64_t chunks = (rows + rows_per_chunk - 1) / rows_per_chunk;
-  const int smem = static_cast<int>(sizeof(T)) * (vocab < tile ? vocab : tile);
+  const int smem = 4 * Bins<T>::words * (vocab < tile ? vocab : tile);
   cudaError_t err = cudaFuncSetAttribute(
       fct_count_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>(chunks), static_cast<unsigned>(tiles),
+  const dim3 grid(static_cast<unsigned>(chunks * tiles),
                   static_cast<unsigned>(batch));
   fct_count_kernel<T><<<grid, kThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(tokens), static_cast<const T*>(weights),
-      static_cast<T*>(out), rows, text_len, vocab, tile, rows_per_chunk);
+      static_cast<T*>(out), rows, text_len, vocab, tile,
+      static_cast<int>(tiles), rows_per_chunk);
   return cudaGetLastError();
 }
 
@@ -110,28 +230,18 @@ cudaError_t launch(const void* tokens, const void* weights, void* out,
 
 extern "C" {
 
-int fct_count_int32(const void* tokens, const void* weights, void* out,
-                    int64_t batch, int64_t rows, int text_len, int vocab,
-                    int tile, int64_t rows_per_chunk, void* stream) {
-  return static_cast<int>(launch<int32_t>(tokens, weights, out, batch, rows,
-                                          text_len, vocab, tile,
-                                          rows_per_chunk, stream));
-}
+#define FCT_ENTRY(NAME, T)                                                  \
+  int NAME(const void* tokens, const void* weights, void* out,             \
+           int64_t batch, int64_t rows, int text_len, int vocab, int tile, \
+           int64_t rows_per_chunk, void* stream) {                         \
+    return static_cast<int>(launch<T>(tokens, weights, out, batch, rows,   \
+                                      text_len, vocab, tile,               \
+                                      rows_per_chunk, stream));            \
+  }
 
-int fct_count_int64(const void* tokens, const void* weights, void* out,
-                    int64_t batch, int64_t rows, int text_len, int vocab,
-                    int tile, int64_t rows_per_chunk, void* stream) {
-  return static_cast<int>(launch<int64_t>(tokens, weights, out, batch, rows,
-                                          text_len, vocab, tile,
-                                          rows_per_chunk, stream));
-}
-
-int fct_count_float32(const void* tokens, const void* weights, void* out,
-                      int64_t batch, int64_t rows, int text_len, int vocab,
-                      int tile, int64_t rows_per_chunk, void* stream) {
-  return static_cast<int>(launch<float>(tokens, weights, out, batch, rows,
-                                        text_len, vocab, tile,
-                                        rows_per_chunk, stream));
-}
+FCT_ENTRY(fct_count_int32, int32_t)
+FCT_ENTRY(fct_count_int64, int64_t)
+FCT_ENTRY(fct_count_float32, float)
+#undef FCT_ENTRY
 
 }  // extern "C"

@@ -15,37 +15,73 @@
 // i - j < window when a window is given; a window implies causal).
 // Scores, softmax statistics and the accumulator are float32; the output is
 // rounded to the input type on store (round to nearest even for bfloat16).
+// Masked pairs get probability exactly 0 (the reference's finite NEG_INF =
+// -2e38 marks them), so a row whose first visited tile lies wholly outside
+// its window adds nothing, where the reference adds a term that its next
+// tile multiplies by exp(NEG_INF - m) = 0: the two agree.  The denominator
+// is clamped at 1e-30.  Both kernels visit only the kv tiles that hold a key
+// of the q tile's causal or local band (k_begin .. k_end).
 //
-// Design: one block of 256 threads per (64-row q tile, batch*head), a loop
-// over the 32-row kv tiles that hold at least one key of the tile's causal or
-// local band (tiles outside it are never visited).  The q tile (pre-scaled),
-// the k and v tiles, the 64x32 score tile and the running (m, l, corr) of each
-// row live in shared memory in float32; each thread keeps its share of the
-// 64xDv output accumulator in registers.  Per kv tile: every thread computes
-// 8 scores (one key against 8 rows, float4 reads, conflict-free with the
-// D+4 row stride); 4 threads per row then take the online-softmax step;
-// then every thread adds its rows x columns of P.V.  Masked pairs get
-// probability exactly 0 (the reference's finite NEG_INF = -2e38 marks them),
-// so a row whose first visited tile lies wholly outside its window adds
-// nothing, where the reference adds a term that its next tile multiplies by
-// exp(NEG_INF - m) = 0: the two agree.  The denominator is clamped at 1e-30.
+// Bound: at the recurrentgemma-2b prefill shape (Sq = Skv = 8192, H 10,
+// Hkv 1, D = Dv = 256, window 2048, bf16) the band's 150 GFLOP at the H100's
+// dense bf16 tensor-core peak (989 TFLOP/s), against about 92 MB of q, k, v
+// and o at 3.35 TB/s: operations.
 //
-// Bound: at the recurrentgemma-2b prefill shape (Sq = Skv = 8192, H 10, Hkv 1,
-// D = Dv = 256, window 2048, bf16) the band's 150 GFLOP at the H100's dense
-// bf16 tensor-core peak (989 TFLOP/s), against about 92 MB of q, k, v and o
-// at 3.35 TB/s: operations.  This kernel does its arithmetic on the CUDA
-// cores in float32 (67 TFLOP/s peak) and waits on shared memory, so it is
-// far from that bound by design; tensor cores (mma.sync / wgmma), TMA loads
-// and a pipelined kv loop are the known next steps.
+// bfloat16: flash_attention_mma_kernel, on the tensor cores.
+//   - One block per (q tile, batch*head); each warp owns 16 q rows: 4 warps
+//     (64 rows) at D <= 128, 8 warps (128 rows) at D = 256, where k and v
+//     tiles take most of shared memory and 8 warps share them.
+//   - S = Q K^T and O += P V are mma.sync.m16n8k16 bf16 products with float32
+//     accumulators, their fragments read from shared memory by ldmatrix
+//     (.trans for V).  Q stays in registers as A fragments for the whole kv
+//     loop where that fits beside O and S (Q D/4 + O Dv/2 + S 32 registers
+//     <= 168 a thread); at D = Dv = 256 that would be 224 of 255 registers,
+//     so Q is read again from shared memory at each k step instead.
+//   - The scale 1/sqrt(D) multiplies S in float32 (exact for D 16, 64, 256).
+//     The online-softmax step runs on the S fragments in registers: row max
+//     and nothing else crosses the quad of lanes that holds a row (two
+//     shuffles); the row sum l is kept per lane and summed at the end.
+//   - P V as a split product: P_hi = bf16(P), P_lo = bf16(P - P_hi), and
+//     O += P_hi V + P_lo V into one float32 accumulator.  P in one bf16 is
+//     off by up to 2^-9 of each probability, which at the prefill's own
+//     inputs breaks the check that holds the kernel to one bf16 rounding of
+//     the output (tests/test_torch_flash_attention.py emulates both); the
+//     split keeps P to about 2^-17 for 1.5x the tensor work of the plain
+//     loop.
+//   - k and v tiles of 64 keys in bf16 go through a two-stage ring in shared
+//     memory, filled by cp.async (16 bytes a thread, zero-filled past Skv)
+//     while the previous tile is computed.  Rows are padded by 8 elements
+//     (16 bytes), so the 8 rows one ldmatrix phase reads fall in 8 distinct
+//     16-byte bank groups: no bank conflicts.  Inputs that are not 16-byte
+//     aligned (pointer or strides) are copied by plain loads in the same
+//     kernel, with no overlap.
+//   - A warp skips the products of a kv tile that holds no key of its own
+//     16 rows' band (it still takes part in the loads and barriers), and
+//     the mask of a tile whose keys all lie in the band of its 16 rows.
+//   - Shared memory: (BQ (D+8) + 2 * 64 ((D+8) + (Dv+8))) * 2 bytes.  At
+//     D = Dv = 256 that is 202 752 bytes with BQ 128, so one block of 8 warps
+//     runs per SM; two blocks would need 2 x 135 168 bytes for the k/v rings
+//     alone, more than the SM's 228 KB.  At D = Dv = 128: 87 040 bytes, two
+//     blocks per SM.
+//   - Bounded by the tensor cores' mma.sync rate and by shared memory: each
+//     S step reads 512 bytes of K for 2 products.  wgmma, TMA and warp
+//     specialisation are the known next steps.
+//
+// float32: flash_attention_kernel, on the CUDA cores (TF32 products would
+//   break the float32 tolerance).  One block of 256 threads per (64-row q
+//   tile, batch*head), a loop over 32-row kv tiles.  The q tile (pre-scaled),
+//   the k and v tiles, the 64x32 score tile and the running (m, l, corr) of
+//   each row live in shared memory in float32; each thread keeps its share of
+//   the 64xDv output accumulator in registers.  Per kv tile: every thread
+//   computes 8 scores (one key against 8 rows, float4 reads, conflict-free
+//   with the D+4 row stride); 4 threads per row then take the online-softmax
+//   step; then every thread adds its rows x columns of P.V.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows of a block
-constexpr int kBK = 32;        // keys of a kv tile (one per lane in S = QK^T)
-constexpr int kThreads = 256;  // 8 warps
 constexpr float kNegInf = -2.0e38f;
 
 struct Params {
@@ -59,20 +95,14 @@ struct Params {
   int64_t o_sb, o_ss, o_sh;
   int heads, kv_heads, sq, skv, causal, window;
   float scale;
+  int aligned;  // q, k, v pointers and strides allow 16-byte copies
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even
-}
+// --- float32: the CUDA-core kernel -------------------------------------------
+
+constexpr int kBQ = 64;        // query rows of a block
+constexpr int kBK = 32;        // keys of a kv tile (one per lane in S = QK^T)
+constexpr int kThreads = 256;  // 8 warps
 
 template <int D, int DV>
 constexpr size_t smem_bytes() {
@@ -82,7 +112,7 @@ constexpr size_t smem_bytes() {
                           static_cast<size_t>(kBQ) * (kBK + 1) + 3 * kBQ);
 }
 
-template <typename T, int D, int DV>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const Params p) {
   static_assert(D % 4 == 0, "float4 reads of q and k rows");
@@ -108,17 +138,16 @@ flash_attention_kernel(const Params p) {
   const int b = blockIdx.y / p.heads;
   const int h = blockIdx.y % p.heads;
   const int hk = h / (p.heads / p.kv_heads);
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  T* og = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, c = i % D;
     sQ[r * kRow + c] =
-        q0 + r < p.sq
-            ? to_float(qg[static_cast<int64_t>(q0 + r) * p.q_ss + c]) * p.scale
-            : 0.0f;
+        q0 + r < p.sq ? qg[static_cast<int64_t>(q0 + r) * p.q_ss + c] * p.scale
+                      : 0.0f;
   }
   if (tid < kBQ) {
     sM[tid] = kNegInf;
@@ -146,16 +175,14 @@ flash_attention_kernel(const Params p) {
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int r = i / D, c = i % D;
       sK[r * kRow + c] =
-          kt + r < p.skv
-              ? to_float(kg[static_cast<int64_t>(kt + r) * p.k_ss + c])
-              : 0.0f;
+          kt + r < p.skv ? kg[static_cast<int64_t>(kt + r) * p.k_ss + c]
+                         : 0.0f;
     }
     for (int i = tid; i < kBK * DV; i += kThreads) {
       const int r = i / DV, c = i % DV;
       sV[r * DV + c] =
-          kt + r < p.skv
-              ? to_float(vg[static_cast<int64_t>(kt + r) * p.v_ss + c])
-              : 0.0f;
+          kt + r < p.skv ? vg[static_cast<int64_t>(kt + r) * p.v_ss + c]
+                         : 0.0f;
     }
     __syncthreads();
 
@@ -244,17 +271,319 @@ flash_attention_kernel(const Params p) {
     const int r = oy + kTy * i;
     if (q0 + r >= p.sq) continue;
     const float inv = 1.0f / fmaxf(sL[r], 1e-30f);
-    T* orow = og + static_cast<int64_t>(q0 + r) * p.o_ss;
+    float* orow = og + static_cast<int64_t>(q0 + r) * p.o_ss;
 #pragma unroll
-    for (int j = 0; j < kCpt; ++j)
-      orow[ox + kTx * j] = from_float<T>(acc[i][j] * inv);
+    for (int j = 0; j < kCpt; ++j) orow[ox + kTx * j] = acc[i][j] * inv;
   }
 }
 
-template <typename T, int D, int DV>
-cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<D, DV>();
-  auto kernel = flash_attention_kernel<T, D, DV>;
+// --- bfloat16: the tensor-core kernel ----------------------------------------
+
+constexpr int kMmaBK = 64;                    // keys of a kv tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D, int DV>
+struct MmaShape {
+  static constexpr int kWarps = D == 256 ? 8 : 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kBQ = 16 * kWarps;     // q rows of a block
+  static constexpr int kQS = D + 8;           // padded row strides (elements)
+  static constexpr int kVS = DV + 8;
+  static constexpr bool kQInRegs = D / 4 + DV / 2 + kMmaBK / 2 <= 168;
+  static constexpr int kStage = kMmaBK * (kQS + kVS);  // one k and one v tile
+  static constexpr size_t kSmem =
+      sizeof(__nv_bfloat16) * (static_cast<size_t>(kBQ) * kQS + 2 * kStage);
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; src_bytes 0 fills the 16 bytes with zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c[16x8] += a[16x16] b[16x8], bf16 inputs, float32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x, y) -> bf16 pairs hi = bf16(x, y) and lo = bf16((x, y) - hi)
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+
+// rows [pos0, pos0 + ROWS) x COLS of one head of a [.., S, .., COLS] tensor
+// into a shared tile of row stride LD, rows at or past `limit` zero-filled
+template <int ROWS, int COLS, int LD, int THREADS>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          int64_t stride, int pos0, int limit,
+                                          bool aligned) {
+  constexpr int kChunks = COLS / 8;  // 16-byte chunks of a row
+  for (int i = threadIdx.x; i < ROWS * kChunks; i += THREADS) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const bool in = pos0 + r < limit;
+    const __nv_bfloat16* g = src + static_cast<int64_t>(pos0 + r) * stride + c;
+    if (aligned) {
+      cp_async16(smem_addr(dst + r * LD + c), in ? g : src, in ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        dst[r * LD + c + e] = in ? g[e] : __float2bfloat16(0.0f);
+    }
+  }
+}
+
+template <int D, int DV>
+__global__ void __launch_bounds__(MmaShape<D, DV>::kThreads)
+flash_attention_mma_kernel(const Params p) {
+  using S = MmaShape<D, DV>;
+  static_assert(D % 16 == 0 && DV % 16 == 0, "mma tiles of 16");
+  constexpr int kQS = S::kQS, kVS = S::kVS, kBQ = S::kBQ;
+  constexpr int kNS = kMmaBK / 8;  // n8 tiles of S across the kv tile
+  constexpr int kNO = DV / 8;      // n8 tiles of O across Dv
+
+  extern __shared__ __align__(16) __nv_bfloat16 smem_bf16[];
+  __nv_bfloat16* sQ = smem_bf16;                // [kBQ][kQS]
+  __nv_bfloat16* sKV = sQ + kBQ * kQS;          // 2 x ([64][kQS] k, [64][kVS] v)
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;         // mma fragment row / column
+  const int q0 = blockIdx.x * kBQ;
+  const int r0 = q0 + warp * 16;                // this warp's first row
+  const int b = blockIdx.y / p.heads;
+  const int h = blockIdx.y % p.heads;
+  const int hk = h / (p.heads / p.kv_heads);
+  const auto* qg = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb +
+                   h * p.q_sh;
+  const auto* kg = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb +
+                   hk * p.k_sh;
+  const auto* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb +
+                   hk * p.v_sh;
+  auto* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const bool aligned = p.aligned != 0;
+
+  // kv tiles that hold a key of the band of this q tile
+  const bool causal = p.causal != 0 || p.window > 0;
+  const int q_last = min(q0 + kBQ, p.sq) - 1;
+  const int k_end = causal ? min(p.skv, q_last + 1) : p.skv;
+  const int k_begin =
+      (p.window > 0 ? max(0, q0 - p.window + 1) : 0) / kMmaBK * kMmaBK;
+
+  auto load_kv = [&](int stage, int kt) {
+    __nv_bfloat16* sk = sKV + stage * S::kStage;
+    load_tile<kMmaBK, D, kQS, S::kThreads>(sk, kg, p.k_ss, kt, p.skv,
+                                           aligned);
+    load_tile<kMmaBK, DV, kVS, S::kThreads>(sk + kMmaBK * kQS, vg, p.v_ss, kt,
+                                            p.skv, aligned);
+  };
+  load_tile<kBQ, D, kQS, S::kThreads>(sQ, qg, p.q_ss, q0, p.sq, aligned);
+  if (k_begin < k_end) load_kv(0, k_begin);
+  cp_async_commit();
+
+  // ldmatrix lane addresses: A (Q) and V^T take rows lane % 16 and columns
+  // 8 (lane / 16); K takes rows lane % 8 + 8 (lane / 16), columns
+  // 8 ((lane / 8) % 2)
+  const int a_row = lane % 16, a_col = (lane / 16) * 8;
+  const int k_row = lane % 8 + (lane / 16) * 8, k_col = ((lane / 8) % 2) * 8;
+  const uint32_t q_addr = smem_addr(sQ + (warp * 16 + a_row) * kQS + a_col);
+
+  uint32_t qf[S::kQInRegs ? D / 16 : 1][4];
+  float o[kNO][4];
+#pragma unroll
+  for (int n = 0; n < kNO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+  float m[2] = {kNegInf, kNegInf};  // running max of rows g and g + 8
+  float l[2] = {0.0f, 0.0f};        // this lane's share of their row sums
+
+  for (int it = 0, kt = k_begin; kt < k_end; ++it, kt += kMmaBK) {
+    const int stage = it % 2;
+    if (kt + kMmaBK < k_end) {   // next tile into the other stage
+      load_kv(stage ^ 1, kt + kMmaBK);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (S::kQInRegs) {
+      if (it == 0) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          ldmatrix_x4(qf[kk], q_addr + kk * 32);
+      }
+    }
+    // does this kv tile hold a key of this warp's 16 rows' band?
+    const bool skip = kt >= p.skv || (causal && kt > r0 + 15) ||
+                      (p.window > 0 && r0 - (kt + kMmaBK - 1) >= p.window);
+    if (!skip) {
+      const __nv_bfloat16* sk = sKV + stage * S::kStage;
+      const uint32_t k_addr = smem_addr(sk + k_row * kQS + k_col);
+      const uint32_t v_addr = smem_addr(sk + kMmaBK * kQS + a_row * kVS +
+                                        a_col);
+
+      // S = Q K^T
+      float s[kNS][4];
+#pragma unroll
+      for (int n = 0; n < kNS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t a[4];
+        if constexpr (S::kQInRegs) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+        } else {
+          ldmatrix_x4(a, q_addr + kk * 32);
+        }
+#pragma unroll
+        for (int np = 0; np < kNS / 2; ++np) {
+          uint32_t bk[4];
+          ldmatrix_x4(bk, k_addr + (np * 16 * kQS + kk * 16) * 2);
+          mma_bf16(s[2 * np], a, bk[0], bk[1]);
+          mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
+        }
+      }
+
+      // scale, mask, online softmax on the fragments: element e of tile n
+      // is row r0 + g + 8 (e / 2), key kt + 8 n + 2 t + e % 2.  A tile
+      // whose keys are all in the band of all 16 rows needs no mask.
+      const bool inside =
+          kt + kMmaBK <= p.skv && (!causal || kt + kMmaBK - 1 <= r0) &&
+          (p.window <= 0 || r0 + 15 - kt < p.window);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int n = 0; n < kNS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          bool valid = inside;
+          if (!inside) {
+            const int kpos = kt + 8 * n + 2 * t + (e % 2);
+            const int delta = r0 + g + 8 * (e / 2) - kpos;
+            valid = kpos < p.skv;
+            if (causal) valid = valid && delta >= 0;
+            if (p.window > 0) valid = valid && delta < p.window;
+          }
+          const float x = valid ? s[n][e] * p.scale : kNegInf;
+          s[n][e] = x;
+          mx[e / 2] = fmaxf(mx[e / 2], x);
+        }
+      float corr[2], m_log2[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        corr[r] = exp2f((m[r] - m_new) * kLog2e);
+        m[r] = m_new;
+        m_log2[r] = m_new * kLog2e;
+        l[r] *= corr[r];
+      }
+#pragma unroll
+      for (int n = 0; n < kNS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = s[n][e];
+          const float pr = x == kNegInf
+                               ? 0.0f
+                               : exp2f(fmaf(x, kLog2e, -m_log2[e / 2]));
+          s[n][e] = pr;
+          l[e / 2] += pr;
+        }
+#pragma unroll
+      for (int n = 0; n < kNO; ++n) {
+        o[n][0] *= corr[0];
+        o[n][1] *= corr[0];
+        o[n][2] *= corr[1];
+        o[n][3] *= corr[1];
+      }
+
+      // O += P_hi V + P_lo V, 16 keys a step; the S fragments of tiles
+      // 2 kk and 2 kk + 1 are the A fragment of P
+#pragma unroll
+      for (int kk = 0; kk < kMmaBK / 16; ++kk) {
+        uint32_t ph[4], pl[4];
+        split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+        split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+        split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+        split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+        for (int np = 0; np < kNO / 2; ++np) {
+          uint32_t bv[4];
+          ldmatrix_x4_trans(bv, v_addr + (kk * 16 * kVS + np * 16) * 2);
+          mma_bf16(o[2 * np], ph, bv[0], bv[1]);
+          mma_bf16(o[2 * np + 1], ph, bv[2], bv[3]);
+          mma_bf16(o[2 * np], pl, bv[0], bv[1]);
+          mma_bf16(o[2 * np + 1], pl, bv[2], bv[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+  cp_async_wait<0>();
+
+  // row sums across the quad, then o / l rounded to bf16
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = r0 + g + 8 * r;
+    if (row >= p.sq) continue;
+    const float inv = 1.0f / fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* orow = og + static_cast<int64_t>(row) * p.o_ss + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kNO; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
+          __floats2bfloat162_rn(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+  }
+}
+
+// --- launch ------------------------------------------------------------------
+
+template <typename Kernel>
+cudaError_t launch_kernel(Kernel kernel, dim3 grid, int threads, size_t bytes,
+                          const Params& p, cudaStream_t stream) {
   if (bytes > 48 * 1024) {
     // above 48 KB a launch is refused unless the kernel opts in
     const cudaError_t err = cudaFuncSetAttribute(
@@ -262,9 +591,22 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
         static_cast<int>(bytes));
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((p.sq + kBQ - 1) / kBQ, batch * p.heads);
-  kernel<<<grid, kThreads, bytes, stream>>>(p);
+  kernel<<<grid, threads, bytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T, int D, int DV>
+cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
+  if constexpr (sizeof(T) == sizeof(float)) {
+    const dim3 grid((p.sq + kBQ - 1) / kBQ, batch * p.heads);
+    return launch_kernel(flash_attention_kernel<D, DV>, grid, kThreads,
+                         smem_bytes<D, DV>(), p, stream);
+  } else {
+    using S = MmaShape<D, DV>;
+    const dim3 grid((p.sq + S::kBQ - 1) / S::kBQ, batch * p.heads);
+    return launch_kernel(flash_attention_mma_kernel<D, DV>, grid, S::kThreads,
+                         S::kSmem, p, stream);
+  }
 }
 
 template <typename T>
@@ -292,10 +634,17 @@ int entry(const void* q, const void* k, const void* v, void* o,
           int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh, int batch,
           int heads, int kv_heads, int sq, int skv, int d, int dv,
           int causal, int window, float scale, void* stream) {
-  const Params p{q,    k,    v,    o,    q_sb,  q_ss,     q_sh,
-                 k_sb, k_ss, k_sh, v_sb, v_ss,  v_sh,     o_sb,
-                 o_ss, o_sh, heads, kv_heads, sq, skv, causal,
-                 window, scale};
+  // 16-byte copies need 16-byte aligned rows: pointers and strides
+  constexpr int64_t kPer16 = 16 / sizeof(T);
+  const bool aligned =
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v)) % 16 == 0 &&
+      (q_sb | q_ss | q_sh | k_sb | k_ss | k_sh | v_sb | v_ss | v_sh) %
+              kPer16 == 0;
+  const Params p{q,    k,    v,    o,    q_sb,  q_ss,     q_sh,   k_sb,
+                 k_ss, k_sh, v_sb, v_ss, v_sh,  o_sb,     o_ss,   o_sh,
+                 heads, kv_heads, sq, skv, causal, window, scale,
+                 static_cast<int>(aligned)};
   return static_cast<int>(
       dispatch<T>(p, batch, d, dv, static_cast<cudaStream_t>(stream)));
 }

@@ -10,10 +10,19 @@ the error of raising the kernel's shared-memory limit); ``LIB.launch``
 raises on anything but 0.  ``LAUNCHES`` moves only where the kernel is
 launched.
 
-The kernel reads q, k and v in the reference's ``[B, S, H, D]`` layout
+Two kernels, chosen by dtype alone: bfloat16 runs on the tensor cores
+(``mma.sync`` m16n8k16 with float32 accumulators, P·V as a split product
+P_hi·V + P_lo·V, k/v tiles of 64 keys in a two-stage ``cp.async`` ring),
+float32 on the CUDA cores in float32 (TF32 would break its tolerance).  A
+failed build or launch raises; neither dtype ever reaches the other kernel.
+``LAUNCHES["flash_attention"]`` counts the launches of both.
+
+The kernels read q, k and v in the reference's ``[B, S, H, D]`` layout
 through their strides (the last dimension must be contiguous), so the
 model's projections go in without a copy; the output is a new contiguous
-``[B, Sq, H, Dv]`` tensor.
+``[B, Sq, H, Dv]`` tensor.  bfloat16 inputs whose pointers or strides are
+not 16-byte aligned are copied into shared memory by plain loads in the
+same kernel.
 """
 from __future__ import annotations
 

@@ -6,7 +6,8 @@ path.  Imports neither JAX nor the JAX package, so it runs on a GPU machine
 that has none; every test skips where there is no CUDA device.
 
 Tolerances: flash 2e-5 in float32 and 4e-2 in bfloat16 (the reference's own,
-``tests/test_kernels.py``); lru_scan 1e-5 (kernel and plain version run the
+``tests/test_kernels.py``), and at the prefill's statistics the smoke's
+one-rounding rule; fct_count bit-equal (integer adds are exact); lru_scan 1e-5 (kernel and plain version run the
 same float32 loop, up to fused multiply-adds); the model 1e-4 on logits of
 magnitude < 1 (float32; summation order only).
 
@@ -56,6 +57,90 @@ def test_kernel_matches_plain_on_card(cuda_device, wdtype, hi, B, R, L, V):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert sum(kernel.LAUNCHES.values()) == sum(before.values()) + 1
+
+
+def _zipf_text(B, R, L, V, pad=0.1):
+    """Token text like the generator's: Zipf(1.1) over ids 1.. with PAD."""
+    ranks = np.arange(1, V, dtype=np.float64) ** -1.1
+    t = RNG.choice(np.arange(1, V), size=(B, R, L), p=ranks / ranks.sum())
+    t[RNG.random((B, R, L)) < pad] = 0
+    return t.astype(np.int32)
+
+
+def _held_to_plain(device, toks, w, V):
+    t = torch.from_numpy(toks).to(device)
+    ww = torch.from_numpy(w).to(device)
+    before = sum(kernel.LAUNCHES.values())
+    got = kernel.fct_count(t, ww, V)
+    want = weighted_histogram(t, ww, V, backend="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert sum(kernel.LAUNCHES.values()) == before + 1
+    return got
+
+
+@pytest.mark.parametrize("L", [16, 12, 5])
+@pytest.mark.parametrize("wdtype,hi", [(np.int32, 1 << 20),
+                                       (np.int64, 1 << 62)])
+def test_fct_count_zipf_hot_text_bit_equal(cuda_device, L, wdtype, hi):
+    """Zipf-hot text (id 1 about 14% of the tokens) through the 16-byte
+    loads (L 16, 12) and the 4-byte loads (L 5), one and two vocab tiles
+    (int32, int64); a third of the rows weigh 0."""
+    B, R, V = 2, 40000, 32768
+    toks = _zipf_text(B, R, L, V)
+    w = RNG.integers(1, hi, (B, R)).astype(wdtype)
+    w[RNG.random((B, R)) < 0.33] = 0
+    _held_to_plain(cuda_device, toks, w, V)
+
+
+def test_fct_count_misaligned_tokens_bit_equal(cuda_device):
+    """A token view 4 bytes past a 16-byte boundary takes the 4-byte loads,
+    L % 4 == 0 notwithstanding."""
+    B, R, L, V = 2, 5000, 16, 4096
+    flat = torch.from_numpy(_zipf_text(1, 1, B * R * L + 1, V)).reshape(-1)
+    flat = flat.to(cuda_device)
+    t = flat[1:].view(B, R, L)
+    assert t.is_contiguous() and t.data_ptr() % 16 == 4
+    w = torch.from_numpy(RNG.integers(0, 1000, (B, R)).astype(np.int32))
+    w = w.to(cuda_device)
+    got = kernel.fct_count(t, w, V)
+    want = weighted_histogram(t, w, V, backend="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("wdtype", [np.int32, np.int64, np.float32])
+def test_fct_count_zero_weights_bit_equal(cuda_device, wdtype):
+    """All rows at weight 0 give an all-zero histogram; zero rows mixed in
+    runs (a padded tail, whole 32-row groups) and singly."""
+    B, R, L, V = 3, 9000, 16, 1000
+    toks = _zipf_text(B, R, L, V)
+    zero = np.zeros((B, R), wdtype)
+    got = _held_to_plain(cuda_device, toks, zero, V)
+    assert not bool(got.any())
+    w = RNG.integers(1, 9, (B, R)).astype(wdtype)
+    w[:, 6000:] = 0                       # padded tail
+    w[0, 64:1088] = 0                     # whole groups
+    w[RNG.random((B, R)) < 0.5] = 0       # single rows
+    _held_to_plain(cuda_device, toks, w, V)
+
+
+def test_fct_count_int32_wraps_and_int64_high_bits_bit_equal(cuda_device):
+    """int32 bins past 2^31 wrap modulo 2^32; int64 weights with bits 62
+    and 63 set wrap modulo 2^64, through the carry from the low word of
+    each bin into its high word."""
+    toks = np.tile(np.array([[3, 700, 3, 0]], np.int32), (4096, 1))[None]
+    w = np.full((1, 4096), (1 << 20) + 7, np.int32)     # 2^33 a bin
+    got = _held_to_plain(cuda_device, toks, w, 1024)
+    assert int(got[0, 3]) != 2 * 4096 * ((1 << 20) + 7)  # wrapped
+    toks64 = _zipf_text(1, 30000, 8, 512)
+    w64 = RNG.integers(-(1 << 63), (1 << 63) - 1, (1, 30000), dtype=np.int64)
+    got64 = _held_to_plain(cuda_device, toks64, w64, 512)
+    assert bool((got64 < 0).any()) and bool((got64 > 0).any())
+    # 2^32 - 1: every add but the first carries out of the low word
+    carry = np.full((1, 30000), (1 << 32) - 1, np.int64)
+    got = _held_to_plain(cuda_device, toks64, carry, 512)
+    assert int(got.max()) > (1 << 40)
 
 
 @pytest.mark.parametrize("policy", ["int32", "int64"])
@@ -108,6 +193,65 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, b, s, h, hkv, d, dv,
     tol = 2e-5 if dtype == torch.float32 else 4e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     assert flash_kernel.LAUNCHES["flash_attention"] == before + 1
+
+
+@pytest.mark.parametrize("d,dv", sorted(flash_kernel.HEAD_DIMS))
+def test_flash_bf16_every_head_dims_ragged(cuda_device, d, dv):
+    """The tensor-core kernel at every (D, Dv) it is built for, ragged S
+    (no multiple of its 64-key tile or its q tile), GQA, causal with a
+    window and without, within the reference's bf16 tolerance."""
+    q = torch.from_numpy(RNG.normal(size=(2, 333, 4, d))).to(cuda_device,
+                                                            torch.bfloat16)
+    k = torch.from_numpy(RNG.normal(size=(2, 333, 2, d))).to(cuda_device,
+                                                            torch.bfloat16)
+    v = torch.from_numpy(RNG.normal(size=(2, 333, 2, dv))).to(cuda_device,
+                                                             torch.bfloat16)
+    for causal, window in ((True, None), (True, 100), (False, None)):
+        got = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+        want = flash_ops.flash_attention(q, k, v, causal=causal,
+                                         window=window, backend="ref")
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), atol=4e-2,
+                                   rtol=4e-2)
+
+
+def test_flash_bf16_within_one_rounding_at_prefill_statistics(cuda_device):
+    """S 2 304, MQA, D 256, window 2 048, q/k/v ~ N(0, 1) in bf16: the
+    kernel within ``chip_smoke.py``'s rule for the prefill's own inputs,
+    |kernel - plain| <= 2^-7 |plain| + 2^-8 mean|plain|."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to(cuda_device, torch.bfloat16)
+               for shape in ((1, 2304, 2, 256), (1, 2304, 1, 256),
+                             (1, 2304, 1, 256)))
+    got = flash_ops.flash_attention(q, k, v, causal=True, window=2048).float()
+    want = flash_ops.flash_attention(q, k, v, causal=True, window=2048,
+                                     block_q=64, block_k=64,
+                                     backend="ref").float()
+    limit = (smoke.CAPTURED_BF16_ABS_OF_MEAN * float(want.abs().mean())
+             + smoke.CAPTURED_BF16_REL * want.abs())
+    assert bool(((got - want).abs() <= limit).all())
+
+
+def test_flash_bf16_reads_unaligned_strided_inputs(cuda_device):
+    """bf16 views whose rows are not 16-byte aligned take the plain loads
+    of the same kernel."""
+    qkv = torch.from_numpy(RNG.normal(size=(1, 150, 3, 2, 72))).to(
+        cuda_device, torch.bfloat16)
+    q, k, v = (t[..., 1:65] for t in qkv.unbind(2))
+    assert q.data_ptr() % 16 != 0 and q.stride(-1) == 1
+    got = flash_ops.flash_attention(q, k, v, causal=True)
+    want = flash_ops.flash_attention(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), causal=True,
+                                     backend="ref")
+    torch.testing.assert_close(got.float(), want.float(), atol=4e-2,
+                               rtol=4e-2)
 
 
 def test_flash_kernel_reads_strided_inputs(cuda_device):

@@ -155,10 +155,15 @@ def test_launch_shape_tiles_the_vocab():
     tile64, _ = kernel.launch_shape(1, 1 << 20, 16, 32768, 8)
     assert tile32 == 32768 and -(-32768 // tile64) == 2
     tile, rows = kernel.launch_shape(4, 10, 3, 33, 4)   # tiny: one chunk
-    assert tile == 33 and rows == 10
-    _, rows = kernel.launch_shape(1, 1 << 22, 16, 32768, 4)
-    assert -(-(1 << 22) // rows) <= kernel.TARGET_BLOCKS
-    assert rows * 16 < 2 ** 31
+    assert tile == 33 and rows >= 10
+    # the main path's largest call: whole steps of 32 warps x 32 rows, and
+    # about TARGET_BLOCKS blocks over the batch and both int64 tiles
+    for itemsize in (4, 8):
+        tile, rows = kernel.launch_shape(4, 1 << 23, 16, 32768, itemsize)
+        assert rows % kernel.BLOCK_ROWS == 0
+        blocks = 4 * -(-(1 << 23) // rows) * -(-32768 // tile)
+        assert kernel.TARGET_BLOCKS <= blocks < 2 * kernel.TARGET_BLOCKS
+    assert kernel.TILE_BYTES <= 227 * 1024
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):

@@ -122,3 +122,66 @@ def test_smoke_bf16_rule_tells_rounding_from_a_window_error():
     tol = TOL["bfloat16"]
     assert bool((wide <= tol + tol * want.abs()).all())
     assert not bool((wide <= limit).all())
+
+
+def _emulate_mma_kernel(q, k, v, window, split):
+    """The bf16 tensor-core kernel's rounding in plain PyTorch: bf16 inputs,
+    float32 scores scaled after the product, online softmax over kv tiles of
+    64 keys with masked pairs at probability exactly 0, the row sum from the
+    float32 P, and P·V from P in bf16: split into P_hi = bf16(P) and
+    P_lo = bf16(P - P_hi) when ``split``, one bf16 P otherwise.  bf16 x bf16
+    products are exact in float32, so only the summation order differs from
+    the card.  Causal with a local window, MQA, B = 1."""
+    _, s, h, d = q.shape
+    qf = q[0].float().transpose(0, 1)                    # [H, S, D]
+    kf, vf = k[0, :, 0].float(), v[0, :, 0].float()      # [S, D]
+    pos = torch.arange(s)
+    m = torch.full((h, s, 1), -2.0e38)
+    l = torch.zeros((h, s, 1))
+    acc = torch.zeros((h, s, vf.shape[-1]))
+    for k0 in range(0, s, 64):
+        kpos = pos[k0:k0 + 64]
+        delta = pos[:, None] - kpos[None, :]
+        valid = (delta >= 0) & (delta < window)
+        x = (qf @ kf[k0:k0 + 64].T) * (1.0 / d ** 0.5)
+        x = torch.where(valid, x, torch.tensor(-2.0e38))
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.where(valid, torch.exp(x - m_new), torch.tensor(0.0))
+        hi = p.bfloat16().float()
+        pv = hi @ vf[k0:k0 + 64]
+        if split:
+            pv = pv + (p - hi).bfloat16().float() @ vf[k0:k0 + 64]
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.transpose(0, 1)[None].bfloat16().float()
+
+
+def test_mma_kernel_needs_the_split_p_product():
+    """Why the bf16 kernel spends a second P·V product: at inputs of the
+    prefill's statistics (S 2 304, MQA, D 256, window 2 048), its rounding
+    with P split into bf16 hi + lo stays within ``chip_smoke.py``'s rule
+    for the prefill's own inputs (one bf16 rounding of the output), and the
+    same arithmetic with P in one bf16 does not."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to(torch.bfloat16)
+               for shape in ((1, 2304, 2, 256), (1, 2304, 1, 256),
+                             (1, 2304, 1, 256)))
+    want = ops.flash_attention(q, k, v, causal=True, window=2048,
+                               block_q=64, block_k=64).float()
+    limit = (smoke.CAPTURED_BF16_ABS_OF_MEAN * float(want.abs().mean())
+             + smoke.CAPTURED_BF16_REL * want.abs())
+    split = (_emulate_mma_kernel(q, k, v, 2048, split=True) - want).abs()
+    assert float(split.max()) > 0
+    assert float((split / limit).max()) <= 1.0
+    single = (_emulate_mma_kernel(q, k, v, 2048, split=False) - want).abs()
+    assert float((single / limit).max()) > 1.0
