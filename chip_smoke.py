@@ -9,8 +9,8 @@ Phases, one line each, then a kernels line and a last line with the device:
   2. build      compile the hand-written CUDA kernels from the checkout's
                 sources (``nvcc``, one process per source, started
                 together): fct_count, flash_attention, lru_scan.
-     build_report  ptxas's registers and spills of each fct_count and
-                flash_attention kernel, and the HMMA (tensor-core)
+     build_report  ptxas's registers and spills of each kernel (fct_count,
+                flash_attention, lru_scan), and the HMMA (tensor-core)
                 instructions ``cuobjdump -sass`` finds in each: every bf16
                 flash instantiation must have some, the float32 one none.
   3. kernels    each kernel against its plain PyTorch version on the card.
@@ -23,7 +23,10 @@ Phases, one line each, then a kernels line and a last line with the device:
                 S > window and a window that is no multiple of the tile,
                 ragged S, float32 within 2e-5 and bfloat16 within 4e-2 (the
                 reference's tolerances).  lru_scan: float32 within 1e-5,
-                bfloat16 within 4e-2.
+                bfloat16 within 4e-2, at the chunk (128 steps) and tile (64
+                / 128 channels) edges: S in {1, 127, 128, 129, 8 229}, W in
+                {5, 127, 129, 2 560}, B 1 and 3, views off a 16-byte
+                boundary, a long-memory input (a in [0.999, 1), S 8 192).
   4. main       the FCT main path at TPC-H SF1 cardinalities (LINEITEM
                 6 001 215, PART 200 000, SUPPLIER 10 000, ORDERS 1 500 000;
                 TPC-H spec v3 §4.2.5), text_len 12, vocab 32 768: a cold
@@ -64,10 +67,17 @@ Phases, one line each, then a kernels line and a last line with the device:
  10. lm_timing  flash_attention and lru_scan on the inputs kept in phase 7:
                 held against their plain versions there (flash in bf16 by
                 the one rounding both sides share: |kernel - plain| <=
-                2^-7 |plain| + 2^-8 mean|plain|), then timed:
-                kernel, plain version, ``scaled_dot_product_attention``
-                with the same band mask (flash only; no single PyTorch call
-                computes the recurrence), and the bound.
+                2^-7 |plain| + 2^-8 mean|plain|; lru_scan within 1e-5 and
+                two calls bit-equal), then timed: kernel, plain version,
+                ``scaled_dot_product_attention`` with the same band mask
+                (flash only; no single PyTorch call computes the
+                recurrence), and the bound; every ``ms`` one call (host
+                launch overhead included).  lru_scan also reports
+                ``per_call_ms``, a call of 20 back to back, its GB/s and
+                share of 3.35 TB/s both ways, the chunk and tile the built
+                library reports, two controls (B 4 x S 8 192 of the same
+                width, and a long-memory input: a in [0.999, 1)), and one
+                ``torch.add`` of a and b, which moves the same bytes.
 
 Float32 matrix products run in full float32 (TF32 off).  Exits non-zero,
 printing no result, when there is no CUDA device, when the package is
@@ -440,7 +450,10 @@ def profile_device(torch, run, kernels) -> str:
 
 # --- phase 6: timing -----------------------------------------------------------
 
-def median_ms(torch, fn, iters=20, warmup=3):
+def median_ms(torch, fn, iters=20, warmup=3, calls=1):
+    """Median over ``iters`` CUDA-event timings of ``calls`` back-to-back
+    calls of ``fn``, divided by ``calls``.  One call (the default) counts the
+    host's launch overhead; a run of them lets it overlap the call before."""
     for _ in range(warmup):
         fn()
     times = []
@@ -448,10 +461,11 @@ def median_ms(torch, fn, iters=20, warmup=3):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / calls)
     times.sort()
     return times[len(times) // 2]
 
@@ -605,15 +619,37 @@ def flash_cases(torch, np, dev):
 
 
 def lru_cases(torch, np, dev):
+    """(label, a, b): the earlier shapes, then the kernel's chunk (128
+    steps) and tile (64 float32 / 128 bf16 channels) edges in both dtypes,
+    views one element off a 16-byte boundary, and a long-memory input (x
+    scaled by sqrt(1 - a²) as the gates scale it)."""
     rng = np.random.default_rng(8765)
-    for b, s, w, dtype in ((2, 64, 32, "float32"), (1, 300, 700, "float32"),
-                           (3, 17, 5, "float32"), (2, 1000, 2560, "float32"),
-                           (2, 300, 700, "bfloat16")):
+    edges = [(1, 1, 5), (3, 127, 127), (1, 128, 129), (3, 129, 2560),
+             (1, 8192 + 37, 129), (3, 8192 + 37, 2560)]
+    shapes = [(2, 64, 32, "float32"), (1, 300, 700, "float32"),
+              (3, 17, 5, "float32"), (2, 1000, 2560, "float32"),
+              (2, 300, 700, "bfloat16")]
+    shapes += [(b, s, w, d) for b, s, w in edges
+               for d in ("float32", "bfloat16")]
+    for b, s, w, dtype in shapes:
         a = rng.uniform(0.8, 1.0, (b, s, w)).astype(np.float32)
         x = rng.normal(size=(b, s, w)).astype(np.float32)
         yield (f"[{b},{s},{w}] {dtype}",
                *(torch.from_numpy(t).to(dev, getattr(torch, dtype))
                  for t in (a, x)))
+    for dtype in ("float32", "bfloat16"):
+        n = 3 * 200 * 2560
+        a, x = (torch.from_numpy(t).to(dev, getattr(torch, dtype))[1:]
+                .view(3, 200, 2560) for t in (
+                    rng.uniform(0.8, 1.0, n + 1).astype(np.float32),
+                    rng.normal(size=n + 1).astype(np.float32)))
+        check(a.data_ptr() % 16 != 0, "the unaligned view is aligned")
+        yield f"[3,200,2560] {dtype} off 16-byte alignment", a, x
+    a = rng.uniform(0.999, 1.0, (1, 8192, 2560)).astype(np.float32)
+    x = (rng.normal(size=(1, 8192, 2560))
+         * np.sqrt(1.0 - a.astype(np.float64) ** 2)).astype(np.float32)
+    yield ("[1,8192,2560] float32 long memory",
+           torch.from_numpy(a).to(dev), torch.from_numpy(x).to(dev))
 
 
 def flash_pair(torch, flash_ops, q, k, v, causal, window):
@@ -638,13 +674,16 @@ def flash_err(torch, flash_ops, q, k, v, causal, window):
 
 
 def lru_err(torch, lru_ops, a, b):
+    """(max abs error, tolerance, worst error over its limit) of the kernel
+    against the plain loop, |kernel - plain| <= tol + tol |plain|: within
+    it when the last is at most 1."""
     got = lru_ops.lru_scan(a, b)
     want = lru_ops.lru_scan(a, b, backend="ref")
     torch.cuda.synchronize()
     tol = LRU_TOL if a.dtype == torch.float32 else FLASH_TOL["bfloat16"]
     diff = (got.float() - want.float()).abs()
-    ok = bool((diff <= tol + tol * want.float().abs()).all())
-    return float(diff.max()), tol, ok
+    share = float((diff / (tol + tol * want.float().abs())).max())
+    return float(diff.max()), tol, share
 
 
 def run_lm_kernel_cases(torch, np, dev):
@@ -659,11 +698,13 @@ def run_lm_kernel_cases(torch, np, dev):
         errs["flash_attention"] = max(errs["flash_attention"], err)
         lines.append(f"flash {label}: {err:.3g} <= {tol}")
     for label, a, b in lru_cases(torch, np, dev):
-        err, tol, ok = lru_err(torch, lru_ops, a, b)
-        check(ok, f"lru_scan {label}: kernel != plain (max abs err {err}, "
-                  f"tolerance {tol})")
+        err, tol, share = lru_err(torch, lru_ops, a, b)
+        check(share <= 1.0, f"lru_scan {label}: kernel != plain (max abs err "
+                            f"{err}, tolerance {tol}, worst error {share} x "
+                            f"its limit)")
         errs["lru_scan"] = max(errs["lru_scan"], err)
-        lines.append(f"lru_scan {label}: {err:.3g} <= {tol}")
+        lines.append(f"lru_scan {label}: {err:.3g} (worst {share:.3f} of "
+                     f"the {tol} limit)")
     return errs, lines
 
 
@@ -905,25 +946,83 @@ def time_flash(torch, captured):
                   "dtype": dtype}}
 
 
-def time_lru(torch, captured):
-    from repro_torch.kernels.lru_scan import ops as lru_ops
-    (a, b), _ = captured
-    err, tol, ok = lru_err(torch, lru_ops, a, b)
-    check(ok, f"lru_scan at the prefill's inputs {list(a.shape)}: kernel != "
-              f"plain (max abs err {err}, tolerance {tol})")
-    ms = median_ms(torch, lambda: lru_ops.lru_scan(a, b))
-    plain = median_ms(torch, lambda: lru_ops.lru_scan(a, b, backend="ref"),
-                      iters=5, warmup=1)
+def lru_bound(a):
+    """(bound ms, bound_by, bytes) of one scan of ``a``'s shape: a and b read
+    once, h written once, at 3.35 TB/s, against one multiply-add an element
+    at the float32 rate."""
     nbytes = 3 * a.numel() * a.element_size()
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = 2.0 * a.numel() / PEAK_SCALAR_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes)
+
+
+def time_lru(torch, captured):
+    """lru_scan at the prefill's first rglru inputs: within 1e-5 of the
+    plain version, two calls bit-equal, timed beside its bound (one call, as
+    every kernel is timed, and per call of 20 back to back); then the
+    kernel on two controls of the same width: B 4 x S 8 192 (four times the
+    blocks) and a long-memory input (a in [0.999, 1)); and one ``torch.add``
+    of the same inputs, which moves the same bytes.  The chunk, tile,
+    tickets and scratch are what the built library reports."""
+    from repro_torch.kernels.lru_scan import kernel as lru_kernel
+    from repro_torch.kernels.lru_scan import ops as lru_ops
+    (a, b), _ = captured
+    err, tol, share = lru_err(torch, lru_ops, a, b)
+    check(share <= 1.0, f"lru_scan at the prefill's inputs {list(a.shape)}: "
+                        f"kernel != plain (max abs err {err}, tolerance "
+                        f"{tol}, worst error {share} x its limit)")
+    first, second = lru_ops.lru_scan(a, b), lru_ops.lru_scan(a, b)
+    torch.cuda.synchronize()
+    check(torch.equal(first, second), "lru_scan at the prefill's inputs: "
+                                      "two calls differ")
+    del first, second
+    ms = median_ms(torch, lambda: lru_ops.lru_scan(a, b))
+    per_call = median_ms(torch, lambda: lru_ops.lru_scan(a, b), iters=10,
+                         calls=20)
+    plain = median_ms(torch, lambda: lru_ops.lru_scan(a, b, backend="ref"),
+                      iters=5, warmup=1)
+    bound, bound_by, nbytes = lru_bound(a)
+    B, S, W = a.shape
+    gen = torch.Generator(device=a.device).manual_seed(7)
+    a4 = torch.rand((4, S, W), generator=gen, device=a.device,
+                    dtype=a.dtype) * 0.1 + 0.9
+    b4 = torch.randn((4, S, W), generator=gen, device=a.device,
+                     dtype=a.dtype)
+    b4_ms = median_ms(torch, lambda: lru_ops.lru_scan(a4, b4))
+    b4_bound, _, b4_bytes = lru_bound(a4)
+    long_a = torch.rand(a.shape, generator=gen, device=a.device,
+                        dtype=a.dtype) * 1e-3 + 0.999
+    long_ms = median_ms(torch, lambda: lru_ops.lru_scan(long_a, b))
+    # what moving the same bytes takes: one elementwise add (reads a and b
+    # once, writes one output), a yardstick of the card's rate, not the
+    # recurrence
+    out = torch.empty_like(a)
+    add_ms = median_ms(torch, lambda: torch.add(a, b, out=out))
+    add_per_call = median_ms(torch, lambda: torch.add(a, b, out=out),
+                             iters=10, calls=20)
+    del a4, b4, long_a, out
+    torch.cuda.empty_cache()
+    geometry = lru_kernel.geometry(a.dtype, B, S, W)
     return err, tol, {
-        "ms": ms, "kernel_ms": ms, "plain_ms": plain, "library_ms": None,
+        "max_err_over_limit": share,
+        "ms": ms, "kernel_ms": ms, "per_call_ms": per_call,
+        "plain_ms": plain, "library_ms": None,
         "library": "none: no single PyTorch call computes the recurrence "
                    "(torch.cumsum/cumprod compute other functions)",
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bytes": nbytes,
+        "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
+        "gb_per_s": nbytes / ms / 1e6,
+        "per_call_gb_per_s": nbytes / per_call / 1e6,
+        "peak_share": nbytes / ms / 1e-3 / PEAK_BYTES_PER_S,
+        "per_call_peak_share": nbytes / per_call / 1e-3 / PEAK_BYTES_PER_S,
+        "repeat_equal": True,
+        **{k: geometry[k] for k in ("chunk_steps", "sub_steps",
+                                    "tile_channels", "tickets")},
+        "scratch_bytes": 4 * geometry["scratch_words"],
+        "b4_ms": b4_ms, "b4_bound_ms": b4_bound,
+        "b4_gb_per_s": b4_bytes / b4_ms / 1e6,
+        "long_memory_ms": long_ms, "same_bytes_add_ms": add_ms,
+        "same_bytes_add_per_call_ms": add_per_call,
         "shape": {"a": list(a.shape), "dtype": str(a.dtype).split(".")[-1]}}
 
 
@@ -940,6 +1039,22 @@ def lm_timing(torch, captured, case_errs):
                  "cases_max_abs_err": case_errs[name], "tolerance": tol}
         entry.update(timing)
         report.append(entry)
+    lru = report[-1]
+    print(f"[lru_timing] lru_scan at {lru['shape']}: {lru['ms']:.4f} ms a "
+          f"call, bound {lru['bound_ms']:.4f} ms, {lru['gb_per_s']:.1f} GB/s "
+          f"({lru['peak_share']:.3f} of 3.35 TB/s); {lru['per_call_ms']:.4f} "
+          f"ms a call of 20 back to back, {lru['per_call_gb_per_s']:.1f} GB/s "
+          f"({lru['per_call_peak_share']:.3f}); chunk "
+          f"{lru['chunk_steps']} steps ({lru['sub_steps']} a thread) x tile "
+          f"{lru['tile_channels']} channels, {lru['tickets']} tickets, "
+          f"scratch {lru['scratch_bytes']} B; worst error "
+          f"{lru['max_err_over_limit']:.3f} of the 1e-5 limit; two calls "
+          f"bit-equal; controls (a call): "
+          f"B 4 {lru['b4_ms']:.4f} ms (bound {lru['b4_bound_ms']:.4f}, "
+          f"{lru['b4_gb_per_s']:.1f} GB/s), long memory "
+          f"{lru['long_memory_ms']:.4f} ms; the same bytes through "
+          f"torch.add {lru['same_bytes_add_ms']:.4f} ms a call, "
+          f"{lru['same_bytes_add_per_call_ms']:.4f} back to back", flush=True)
     return report
 
 
@@ -983,7 +1098,7 @@ def main() -> int:
         f"{lib.source.relative_to(ROOT)} -> {lib.path.name}, nvcc "
         f"{lib.build_seconds:.3f}s" for lib in libs) + " (started together)")
     t0 = time.perf_counter()
-    phase("build_report", t0, build_report(libs[:2]))
+    phase("build_report", t0, build_report(libs))
 
     t0 = time.perf_counter()
     errs, lines = run_kernel_cases(torch, np, dev, ops, kernel)
@@ -1055,9 +1170,13 @@ def main() -> int:
     phase("lm_timing", t0, "flash_attention and lru_scan within tolerance "
                            "of their plain versions on the inputs captured "
                            "from the prefill's first local and first rglru "
-                           "layer, then timed: kernel and scaled_dot_product"
-                           "_attention median of 20 CUDA-event timings after "
-                           "3 warm-up calls, plain versions median of 5")
+                           "layer (lru_scan also bit-equal across two "
+                           "calls), then timed: each kernel, its controls "
+                           "and scaled_dot_product_attention median of 20 "
+                           "CUDA-event timings of one call after 3 warm-up "
+                           "calls, lru_scan's per_call_ms median of 10 runs "
+                           "of 20 back-to-back calls, plain versions median "
+                           "of 5")
     phase("total", t_start, "wall time of the whole smoke, build included")
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {

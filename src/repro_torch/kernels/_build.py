@@ -51,8 +51,10 @@ def nvcc() -> str:
 class Library:
     """One CUDA source: its lazily built library and its launch counts.
 
-    ``symbols`` maps each exported launcher to its argument kinds, the
-    stream last; ``kernels`` names the counters in ``launches`` (default:
+    ``symbols`` maps each exported function to its argument kinds: a
+    launcher's end with the stream, and a function that launches nothing
+    (called on ``load()``'s library, not through ``launch``) has none;
+    ``kernels`` names the counters in ``launches`` (default:
     one counter named after the library)."""
 
     def __init__(self, name: str, source: Path,

@@ -7,8 +7,12 @@ that has none; every test skips where there is no CUDA device.
 
 Tolerances: flash 2e-5 in float32 and 4e-2 in bfloat16 (the reference's own,
 ``tests/test_kernels.py``), and at the prefill's statistics the smoke's
-one-rounding rule; fct_count bit-equal (integer adds are exact); lru_scan 1e-5 (kernel and plain version run the
-same float32 loop, up to fused multiply-adds); the model 1e-4 on logits of
+one-rounding rule; fct_count bit-equal (integer adds are exact); lru_scan
+1e-5 in float32 and 4e-2 in bfloat16 (the kernel's chunked scan rounds its
+per-chunk carries where the plain loop does not; the emulation of its
+order, ``tests/_lru_kernel_order.py``, stays within 0.13 of the 1e-5 limit
+on the CPU, and the float32 kernel equals it bit for bit), and bit-equal
+from call to call; the model 1e-4 on logits of
 magnitude < 1 (float32; summation order only).
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -17,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from _lru_kernel_order import kernel_order
 from repro_torch.api import FCTRequest, FCTSession, SessionConfig
 from repro_torch.core.star import fct_star, topk_terms
 from repro_torch.data.tpch import TpchConfig, generate, plant_keywords
@@ -265,8 +270,17 @@ def test_flash_kernel_reads_strided_inputs(cuda_device):
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
 
 
+# around the kernel's chunk of 128 timesteps and its tiles of 64 float32 /
+# 128 bf16 channels (test_lru_scan_follows_its_emulated_order checks them
+# against the built library)
+LRU_S_EDGES = (1, 127, 128, 129, 8192 + 37)
+LRU_W_EDGES = (5, 127, 129, 2560)
+LRU_EDGES = [(b, s, w) for b in (1, 3) for s in LRU_S_EDGES
+             for w in LRU_W_EDGES]
+
+
 @pytest.mark.parametrize("b,s,w", [(2, 64, 32), (1, 300, 700), (3, 17, 5),
-                                   (1, 8192, 2560)])
+                                   (1, 8192, 2560)] + LRU_EDGES)
 def test_lru_scan_kernel_matches_plain_on_card(cuda_device, b, s, w):
     a = torch.from_numpy(RNG.uniform(0.8, 1.0, (b, s, w))).float().to(
         cuda_device)
@@ -281,6 +295,99 @@ def test_lru_scan_kernel_matches_plain_on_card(cuda_device, b, s, w):
     want16 = lru_ops.lru_scan(a.bfloat16(), x.bfloat16(), backend="ref")
     torch.testing.assert_close(got16.float(), want16.float(), atol=4e-2,
                                rtol=4e-2)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 4e-2)])
+@pytest.mark.parametrize("w", [2560, 129])
+def test_lru_scan_unaligned_views(cuda_device, dtype, tol, w):
+    """a and b one element off a 16-byte boundary take the kernel's plain
+    loads and stores."""
+    n = 3 * 200 * w
+    raw = [torch.from_numpy(x).to(cuda_device, dtype) for x in (
+        RNG.uniform(0.8, 1.0, n + 1), RNG.normal(size=n + 1))]
+    a, x = (t[1:].view(3, 200, w) for t in raw)
+    assert a.is_contiguous() and a.data_ptr() % 16 != 0
+    got = lru_ops.lru_scan(a, x)
+    want = lru_ops.lru_scan(a, x, backend="ref")
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("b,s,w", [(3, 8192 + 37, 129), (1, 1000, 2560)])
+def test_lru_scan_follows_its_emulated_order(cuda_device, b, s, w):
+    """The float32 kernel equals ``kernel_order`` (its order of arithmetic
+    in numpy, with correctly rounded fmaf) bit for bit, at the geometry the
+    built library reports; and the edge shapes above straddle that
+    geometry."""
+    g = lru_kernel.geometry(torch.float32, b, s, w)
+    chunk = g["chunk_steps"]
+    assert {chunk - 1, chunk, chunk + 1} <= set(LRU_S_EDGES)
+    for dtype in lru_kernel.INSTANTIATIONS:
+        tile = lru_kernel.geometry(dtype, 1, 1, 1)["tile_channels"]
+        assert any(0 < w_ % tile < tile - 1 for w_ in LRU_W_EDGES)
+        assert any(w_ % tile == 1 for w_ in LRU_W_EDGES)
+    a = RNG.uniform(0.8, 1.0, (b, s, w)).astype(np.float32)
+    x = RNG.normal(size=(b, s, w)).astype(np.float32)
+    got = lru_ops.lru_scan(torch.from_numpy(a).to(cuda_device),
+                           torch.from_numpy(x).to(cuda_device)).cpu().numpy()
+    want = kernel_order(a, x, g["sub_steps"], chunk)
+    diff = got.view(np.uint32) != want.view(np.uint32)
+    assert not diff.any(), (f"{int(diff.sum())} of {diff.size} differ, max "
+                            f"abs {np.max(np.abs(got - want))}")
+
+
+def _loop64(a, x):
+    out = torch.empty(a.shape, dtype=torch.float64, device=a.device)
+    h = torch.zeros_like(out[:, 0])
+    for t in range(a.shape[1]):
+        h = a[:, t].double() * h + x[:, t].double()
+        out[:, t] = h
+    return out
+
+
+def test_lru_scan_long_memory(cuda_device):
+    """a in [0.999, 1): carries live across the whole 8 192 steps, through
+    64 chunks.  With x scaled by sqrt(1 - a²), as the gates scale it, within
+    1e-5 of the plain loop.  Unscaled, |h| reaches about 100 and float32
+    rounding alone passes the 1e-5 rule (the CPU emulation shows the same),
+    so there the kernel is held to a float64 loop: no farther from it than
+    the plain loop, up to one float32 rounding of |h|."""
+    a = torch.from_numpy(RNG.uniform(0.999, 1.0, (1, 8192, 2560))).float()
+    x = torch.from_numpy(RNG.normal(size=(1, 8192, 2560))).float()
+    a, x = a.to(cuda_device), x.to(cuda_device)
+    gated = x * torch.sqrt(1.0 - a * a)
+    got = lru_ops.lru_scan(a, gated)
+    want = lru_ops.lru_scan(a, gated, backend="ref")
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    got = lru_ops.lru_scan(a, x)
+    want = lru_ops.lru_scan(a, x, backend="ref")
+    exact = _loop64(a, x)
+    ulp = torch.finfo(torch.float32).eps * float(exact.abs().max())
+    assert (float((got.double() - exact).abs().max())
+            <= float((want.double() - exact).abs().max()) + ulp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lru_scan_is_deterministic(cuda_device, dtype):
+    """20 calls on the same inputs give the same bits, also while another
+    stream keeps the card busy (so blocks interleave differently)."""
+    a = torch.from_numpy(RNG.uniform(0.9, 1.0, (2, 4096 + 17, 2560))).to(
+        cuda_device, dtype)
+    x = torch.from_numpy(RNG.normal(size=(2, 4096 + 17, 2560))).to(
+        cuda_device, dtype)
+    first = lru_ops.lru_scan(a, x)
+    m = torch.randn(4096, 4096, device=cuda_device)
+    other = torch.cuda.Stream()
+    other.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for i in range(20):
+        if i >= 10:
+            with torch.cuda.stream(other):
+                for _ in range(4):
+                    m @ m
+        outs.append(lru_ops.lru_scan(a, x))
+    torch.cuda.synchronize()
+    assert all(torch.equal(first, o) for o in outs)
 
 
 def test_reduced_model_forward_through_kernels(cuda_device):
