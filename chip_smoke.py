@@ -38,7 +38,7 @@ Phases, one line each, then a kernels line and a last line with the device:
                 row counts only.
   5. profile    one more warm query under ``torch.profiler``: device time by
                 kernel, fct_count's share, the device's idle share (the
-                prefill of phase 7 is profiled the same way).
+                prefill of phase 9 is profiled the same way).
   6. fct_timing each fct_count instantiation at the main path's largest call
                 (its actual inputs): held against the plain version on those
                 inputs (bit-equal), then timed: kernel, plain version, one
@@ -47,7 +47,43 @@ Phases, one line each, then a kernels line and a last line with the device:
                 every token read; both), and the byte bound of what the inputs need (weights, the tokens
                 of rows whose weight is not 0, the output) beside the padded
                 bound that reads every token; the share of zero-weight rows.
-  7. lm_prefill recurrentgemma-2b (arXiv:2402.19427) at full width and
+  7. serve      the serving path on phase 4's deployment: a ``Gateway`` over a
+                ``SchemaRegistry`` of two tenants (``tpch``: phase 4's schema
+                as is, int32 policy; ``demo``: ``repro_torch.data.demo``),
+                batch window 5 ms, result-cache TTL 3 600 s, ``patch``
+                appends.  Burst 1: the full keyword set and one 2-keyword
+                subset to tpch, each twice while in flight (coalescing), and
+                four demo queries; every tpch answer bit-equal to the
+                oracle.  Burst 2: the same stream, all cache hits, no engine
+                batch; a different top_k re-sliced from the cache.  One
+                uncached query on the warm session through a second,
+                cache-less gateway, under ``torch.profiler``.  Append:
+                60 012 LINEITEM rows (1%), keys and tokens from
+                ``data/tpch.py``'s distributions and ``--seed``, keywords
+                planted as in phase 4; the patched hits equal ``fct_star``
+                on the appended schema; the first query after it (through
+                the session) re-plans, builds 0 programs and assembles the
+                chunked columns on the device, and only the new chunk's
+                rows were uploaded.  ``invalidate`` and a re-query: equal to
+                the oracle, 0 programs built.  A ``device_topk`` session:
+                the same top-k from an O(k) transfer.  Then ``python -m
+                repro_torch.launch.fct_serve --smoke --device cuda`` in
+                process, to its ``SMOKE OK``.  Each path (burst 1, burst 2,
+                the uncached query, append + ``delta_freq``, the first
+                post-append query, the re-query, the device top-k queries,
+                the launcher smoke) runs with every count set to 0 just
+                before it and read just after: fct_count int32 launched in
+                each but burst 2, which launched nothing, and no
+                plain-version call; each path's count goes into the kernels
+                line as ``<path>_launches``.
+  8. pipeline   the warm full query 8 times through ``FCTSession.submit``
+                on phase 4's session: FIFO, every answer equal to the
+                oracle; the burst's wall time against 8 sequential
+                ``query`` calls, and the device's idle share over one more
+                burst (``torch.profiler``, as phase 5).  The counts are set
+                to 0 just before the submit burst and read just after it
+                (``pipeline_submit_launches``).
+  9. lm_prefill recurrentgemma-2b (arXiv:2402.19427) at full width and
                 depth in bf16, random weights from ``--seed``: one prefill
                 ``forward`` of B 1 x S 8 192 tokens (cut from the dry-run's
                 prefill_32k, B 32 x S 32 768, whose float32 logits alone
@@ -56,15 +92,15 @@ Phases, one line each, then a kernels line and a last line with the device:
                 one lru_scan launch per rglru layer (18), no plain-version
                 call.  Keeps the first local layer's attention inputs and
                 the first rglru layer's scan inputs.
-  8. lm_decode  the same model in float32: ``forward`` of B 1 x S 2 304
+  10. lm_decode  the same model in float32: ``forward`` of B 1 x S 2 304
                 (flash, since S >= 1 024; past the 2 048 window, so the
                 decode ring buffer wraps) against token-by-token
                 ``decode_step``: max abs logit error below 5e-3, top-1 ids
                 equal wherever the forward's top-2 margin exceeds 1e-2.
-  9. lm_serve   ``python -m repro_torch.launch.serve --arch
+  11. lm_serve   ``python -m repro_torch.launch.serve --arch
                 recurrentgemma-2b --full --batch 4 --prompt-len 12
                 --gen-len 24``, in process: tokens/s.
- 10. lm_timing  flash_attention and lru_scan on the inputs kept in phase 7:
+ 12. lm_timing  flash_attention and lru_scan on the inputs kept in phase 9:
                 held against their plain versions there (flash in bf16 by
                 the one rounding both sides share: |kernel - plain| <=
                 2^-7 |plain| + 2^-8 mean|plain|; lru_scan within 1e-5 and
@@ -403,7 +439,7 @@ def run_main_path(torch, np, args, dev):
     print(f"[main] launches {launches} paths {paths} device_peak_bytes "
           f"{peak} store_bytes {session.store.resident_bytes} + "
           f"{session64.store.resident_bytes}", flush=True)
-    return launches, recorder.largest, session, full
+    return launches, recorder.largest, session, full, schema, oracles
 
 
 # --- phase 5: where one warm query's device time goes -------------------------
@@ -539,6 +575,349 @@ def time_kernel(torch, ops, tokens, weights, vocab, seed):
             "shape": [B, R, L, vocab]}
 
 
+# --- phases 7-8: the serving path on phase 4's deployment ----------------------
+
+APPEND_FRAC = 0.01              # LINEITEM rows appended in the serve phase
+DEMO_QUERIES = ["alps bordeaux", "polished azure", "alps express priority",
+                "bordeaux fragile"]
+FULL_HISTOGRAM_BYTES = VOCAB * 4    # an int32 histogram's host transfer
+
+
+def append_rows(np, schema, kws, n, seed):
+    """``n`` LINEITEM rows as ``append`` takes them: foreign keys uniform
+    over the existing domains and Zipf(1.1) token text with 10% PAD, the
+    generator's own distributions (``data/tpch.py``, skew 0), and the
+    keywords planted into 30% of the rows as phase 4 planted LINEITEM."""
+    from repro_torch.data import tpch
+    rng = np.random.default_rng(seed + 1000)
+    fact = schema.fact
+    keys = {c: tpch._zipf_keys(rng, n, fact.key_domains[c], 0.0)
+            for c in fact.keys}
+    text = tpch._text(rng, n, TEXT_LEN, VOCAB)
+    for kw in (kws[0], kws[2]):
+        rows = np.nonzero(rng.random(n) < 0.3)[0]
+        text[rows, rng.integers(0, TEXT_LEN, rows.size)] = kw
+    return [{**{c: int(keys[c][i]) for c in keys}, "text": text[i]}
+            for i in range(n)]
+
+
+class Timed:
+    """Wraps a bound method to keep the wall time of each call."""
+
+    def __init__(self, fn):
+        self.fn, self.ms = fn, []
+
+    def __call__(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*args, **kwargs)
+        finally:
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+
+
+class UploadLog:
+    """Records the rows of every ref whose columns go host -> device."""
+
+    def __init__(self, ref_cls):
+        self.ref_cls, self.inner = ref_cls, ref_cls.store_columns
+        self.uploads = []
+
+    def __enter__(self):
+        log, inner = self.uploads, self.inner
+
+        def store_columns(ref, *args):
+            text, keys = inner(ref, *args)
+            log.append((ref.name, int(ref.rows.min()), int(ref.rows.max()),
+                        text.nbytes + keys.nbytes))
+            return text, keys
+
+        self.ref_cls.store_columns = store_columns
+        return self
+
+    def __exit__(self, *exc):
+        self.ref_cls.store_columns = self.inner
+
+
+def check_topk(np, resp, oracle, kws, k, label):
+    from repro_torch.core.star import topk_terms
+    ids, f = topk_terms(oracle, kws, k)
+    check(np.array_equal(resp.term_ids, ids), f"{label}: term_ids differ")
+    check(np.array_equal(resp.freqs, f), f"{label}: freqs differ")
+
+
+def latency_line(snap, tenant):
+    h = snap["histograms"][f"gateway.query_latency_ms{{schema={tenant}}}"]
+    return (f"{tenant}: n {h['count']} p50 {h['p50']} p95 {h['p95']} p99 "
+            f"{h['p99']} ms")
+
+
+def run_serve(torch, np, args, dev, schema, oracles, full):
+    """Phase 7; returns the launches of each of its paths, each counted
+    from 0 around that path alone, and the launcher smoke's line."""
+    from repro_torch.api import FCTRequest, FCTSession, SessionConfig
+    from repro_torch.core.plan import RelationRef
+    from repro_torch.core.star import fct_star
+    from repro_torch.data.demo import TOK, build_db
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serve import Gateway, GatewayConfig, SchemaRegistry
+
+    kws = list(full.keywords)
+    sub = FCTRequest(keywords=(kws[0], kws[1]), top_k=10, r_max=4)
+    tpch_reqs = [full, full, sub, sub]
+    demo_reqs = [FCTRequest(keywords=tuple(q.split()), top_k=10, r_max=4)
+                 for q in DEMO_QUERIES]
+    metrics = MetricsRegistry()
+    registry = SchemaRegistry(device=dev, metrics=metrics)
+    registry.register("tpch", schema,
+                      config=SessionConfig(accum_policy="int32"))
+    registry.register("demo", build_db(), tokenizer=TOK)
+    gateway = Gateway(registry, GatewayConfig(
+        batch_window_ms=5.0, result_cache_ttl_s=3600.0,
+        append_policy="patch"), metrics=metrics)
+    path_launches = {}
+
+    def burst():
+        t0 = time.perf_counter()
+        futs = ([gateway.submit("tpch", r) for r in tpch_reqs]
+                + [gateway.submit("demo", r) for r in demo_reqs])
+        resps = [f.result(timeout=900) for f in futs]
+        wall = (time.perf_counter() - t0) * 1e3
+        return resps, wall
+
+    def check_burst(label, resps):
+        for req, r in zip(tpch_reqs, resps):
+            check_answer(np, r, oracles[req.keywords], list(req.keywords), 10,
+                         f"{label} tpch {req.keywords}")
+
+    (first, wall1), path_launches["gateway_burst"] = counted(
+        "gateway burst 1", burst)
+    check_burst("burst 1", first)
+    check(sum(r.coalesced for r in first) >= 1, "burst 1: nothing coalesced")
+    tpch = registry.session("tpch")
+    batches = {t: registry.session(t).engine.batches_run
+               for t in ("tpch", "demo")}
+    (second, wall2), hit_launches = counted(
+        "gateway burst 2", burst, kernels=())
+    check_burst("burst 2", second)
+    check(not hit_launches, f"burst 2 launched kernels: {hit_launches}")
+    check(all(r.cache_hit for r in second), "burst 2 missed the cache")
+    check(all(registry.session(t).engine.batches_run == batches[t]
+              for t in batches), "burst 2 ran engine batches")
+    hit_ms = []
+    for k in (5, 10, 3):
+        t0 = time.perf_counter()
+        r = gateway.query("tpch", FCTRequest(keywords=full.keywords,
+                                             top_k=k, r_max=4))
+        hit_ms.append((time.perf_counter() - t0) * 1e3)
+        check(r.cache_hit and len(r.term_ids) == k,
+              f"top_k {k} was not re-sliced from the cache")
+        check_topk(np, r, oracles[full.keywords], kws, k, f"top_k {k}")
+    print(f"[serve] burst 1 (cold: plans for 2 keyword sets) {wall1:.3f} ms, "
+          f"{sum(r.coalesced for r in first)} coalesced; burst 2 "
+          f"{wall2:.3f} ms, all {len(second)} cache hits, 0 batches; cache "
+          f"hits re-sliced at top_k 5/10/3 in "
+          f"{', '.join(f'{m:.3f}' for m in hit_ms)} ms", flush=True)
+
+    # an uncached query on the warm session: a second gateway over the same
+    # registry with its result cache off
+    with Gateway(registry, GatewayConfig(batch_window_ms=5.0,
+                                         result_cache_ttl_s=0),
+                 metrics=MetricsRegistry()) as probe:
+        t0 = time.perf_counter()
+        r, path_launches["gateway_uncached"] = counted(
+            "uncached gateway query", lambda: probe.query("tpch", full))
+        miss_ms = (time.perf_counter() - t0) * 1e3
+        check_answer(np, r, oracles[full.keywords], kws, 10, "uncached")
+        prof = profile_device(torch, lambda: probe.query("tpch", full),
+                              {"fct_count": "fct_count_kernel"})
+    print(f"[serve] uncached tpch query on the warm session (window 5 ms): "
+          f"{miss_ms:.3f} ms (plan {r.timings['plan_ms']} dispatch "
+          f"{r.timings['dispatch_ms']} collect {r.timings['collect_ms']}); "
+          f"profile of one more: {prof}", flush=True)
+
+    # append 1% of LINEITEM through the gateway (patch policy)
+    n_new = int(round(schema.fact.rows * APPEND_FRAC))
+    rows = append_rows(np, schema, kws, n_new, args.seed)
+    base_rows = schema.fact.rows
+    before = tpch.stats()
+    tpch.append, tpch.delta_freq = Timed(tpch.append), Timed(tpch.delta_freq)
+    try:
+        with UploadLog(RelationRef) as log:
+            t0 = time.perf_counter()
+            # the session's append, then delta_freq for the patch
+            ar, path_launches["append_delta_freq"] = counted(
+                "gateway append", lambda: gateway.append("tpch", "LINEITEM",
+                                                         rows))
+            gw_append_ms = (time.perf_counter() - t0) * 1e3
+            post, path_launches["post_append_query"] = counted(
+                "first post-append query", lambda: tpch.query(full))
+    finally:
+        append_ms, delta_ms = tpch.append.ms, tpch.delta_freq.ms
+        del tpch.append, tpch.delta_freq
+    after = tpch.stats()
+    check(ar.rows_appended == n_new and ar.base_rows == base_rows,
+          f"append result {ar}")
+    check(gateway.stats()["tpch"]["histograms_patched"] == 2,
+          "the two cached histograms were not patched")
+    appended = tpch.schema
+    t0 = time.perf_counter()
+    new_oracles = {r.keywords: fct_star(appended, list(r.keywords), 4)
+                   for r in (full, sub)}
+    oracle_s = time.perf_counter() - t0
+    for req in (full, sub):
+        r = gateway.query("tpch", req)
+        check(r.cache_hit and r.data_epoch == ar.data_epoch,
+              f"post-append {req.keywords}: not a patched hit")
+        check_answer(np, r, new_oracles[req.keywords], list(req.keywords), 10,
+                     f"patched hit {req.keywords}")
+    check_answer(np, post, new_oracles[full.keywords], kws, 10,
+                 "first post-append query")
+    check(post.engine_stats["traces"] == 0,
+          "the first post-append query built programs")
+    up_bytes = after["store_upload_bytes"] - before["store_upload_bytes"]
+    assembles = (after["store_chunk_assembles"]
+                 - before["store_chunk_assembles"])
+    # LINEITEM columns go up only for rows of the new chunk; a dimension's
+    # columns only for a CN the new rows made non-empty (none was cached)
+    fact_up = [u for u in log.uploads if u[0] == "LINEITEM"]
+    check(fact_up and all(lo >= base_rows for _, lo, _, _ in fact_up),
+          f"a LINEITEM upload left the new chunk: {fact_up[:5]}")
+    chunk_bytes = sum(b for *_, b in fact_up)
+    dim_bytes = sum(b for *_, b in log.uploads) - chunk_bytes
+    check(up_bytes == chunk_bytes + dim_bytes,
+          f"upload bytes {up_bytes} != the logged {chunk_bytes + dim_bytes}")
+    check(assembles >= 1, "no chunked entry was assembled on the device")
+    t = post.timings
+    print(f"[serve] append of {n_new} LINEITEM rows (data epoch "
+          f"{ar.data_epoch}): session append {append_ms[0]:.3f} ms, "
+          f"delta_freq {' + '.join(f'{m:.3f}' for m in delta_ms)} ms, "
+          f"gateway append (patch) {gw_append_ms:.3f} ms; first "
+          f"post-append query {t['total_ms']} ms (plan {t['plan_ms']} "
+          f"dispatch {t['dispatch_ms']} collect {t['collect_ms']}), builds "
+          f"{post.engine_stats['traces']}, chunk assembles {assembles}, "
+          f"uploads {len(fact_up)} LINEITEM chunk parts {chunk_bytes} B + "
+          f"{len(log.uploads) - len(fact_up)} dimension entries {dim_bytes} "
+          f"B (the columns uploaded before it: "
+          f"{before['store_upload_bytes']} B); appended "
+          f"oracles in {oracle_s:.3f}s", flush=True)
+
+    dropped = gateway.invalidate("tpch")
+    r, path_launches["requery"] = counted(
+        "re-query after invalidate", lambda: gateway.query("tpch", full))
+    check(not r.cache_hit, "invalidated entry still served")
+    check_answer(np, r, new_oracles[full.keywords], kws, 10, "re-query")
+    check(r.engine_stats["traces"] == 0, "the re-query built programs")
+    t = r.timings
+    print(f"[serve] invalidate dropped {dropped} results; re-query "
+          f"{t['total_ms']} ms (plan {t['plan_ms']} dispatch "
+          f"{t['dispatch_ms']}), builds 0, uploads "
+          f"{r.engine_stats['store_uploads']}", flush=True)
+
+    topk = FCTSession(appended, device=dev,
+                      config=SessionConfig(device_topk=True))
+    d_resps, path_launches["device_topk"] = counted(
+        "device top-k", lambda: [topk.query(full) for _ in range(3)])
+    # the same session's host finalize, warm: the latency to compare with
+    h_resps = [topk.query(FCTRequest(keywords=full.keywords, top_k=10,
+                                     r_max=4, need_histogram=True))
+               for _ in range(2)]
+    for h in h_resps:
+        check(h.finalize == "host", "need_histogram did not take the host "
+                                    "finalize")
+        check_answer(np, h, new_oracles[full.keywords], kws, 10,
+                     "host finalize beside device top-k")
+    for i, d in enumerate(d_resps):
+        check(d.finalize == "device_topk" and d.all_freqs is None,
+              f"device top-k {i}: finalize {d.finalize}")
+        check_topk(np, d, new_oracles[full.keywords], kws, 10,
+                   f"device top-k {i}")
+        check(np.array_equal(d.term_ids, r.term_ids)
+              and np.array_equal(d.freqs, r.freqs),
+              "device top-k differs from the host top-k")
+        check(d.engine_stats["device_to_host_bytes"] <= 1024,
+              f"device top-k moved {d.engine_stats['device_to_host_bytes']} B")
+    print(f"[serve] device top-k (k 10): device_to_host_bytes "
+          f"{d_resps[-1].engine_stats['device_to_host_bytes']} against the "
+          f"full histogram's {FULL_HISTOGRAM_BYTES} (host finalize on the "
+          f"same session: {h_resps[-1].engine_stats['device_to_host_bytes']}"
+          f"); groups pruned {d_resps[-1].engine_stats['groups_pruned']} of "
+          f"{d_resps[-1].engine_stats['groups_pruned'] + d_resps[-1].engine_stats['batches_run']}"
+          f"; cold {d_resps[0].timings['total_ms']} ms, warm "
+          f"{d_resps[1].timings['total_ms']} / "
+          f"{d_resps[2].timings['total_ms']} ms against the host finalize's "
+          f"warm {h_resps[0].timings['total_ms']} / "
+          f"{h_resps[1].timings['total_ms']} ms", flush=True)
+    del topk, d_resps, h_resps
+
+    st, snap = gateway.stats(), metrics.snapshot()
+    print("[serve] latency " + "; ".join(latency_line(snap, t)
+                                        for t in ("tpch", "demo")), flush=True)
+    print("[serve] " + "; ".join(
+        f"{t}: result cache {st[t]['result_hits']} hits / "
+        f"{st[t]['result_misses']} misses, {st[t]['windows_flushed']} "
+        f"windows (mean {st[t]['mean_window_queries']}, peak "
+        f"{st[t]['max_window_queries']}), {st[t]['coalesced']} coalesced"
+        for t in ("tpch", "demo")), flush=True)
+    gateway.close()
+    registry.close()
+    del gateway, registry, tpch, appended
+    torch.cuda.empty_cache()
+    smoke, path_launches["fct_serve_smoke"] = counted(
+        "fct_serve --smoke", lambda: run_fct_serve_smoke(torch))
+    print("[serve] launches by path, each counted from 0 around that path "
+          f"alone: {path_launches}", flush=True)
+    return path_launches, smoke
+
+
+def run_fct_serve_smoke(torch) -> str:
+    import contextlib
+    import io
+
+    from repro_torch.launch import fct_serve
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        fct_serve.main(["--smoke", "--device", "cuda"])
+    lines = out.getvalue().strip().splitlines()
+    check(lines and lines[-1] == "SMOKE OK", "fct_serve --smoke did not "
+          f"reach SMOKE OK: {lines[-5:]}")
+    torch.cuda.empty_cache()
+    return (f"python -m repro_torch.launch.fct_serve --smoke --device cuda: "
+            + " / ".join(ln for ln in lines if ln.startswith("#")
+                         or ln == "SMOKE OK"))
+
+
+def run_pipeline(torch, np, session, full, oracle):
+    """Phase 8; returns the launches of the submit burst alone."""
+    kws = list(full.keywords)
+    t0 = time.perf_counter()
+    seq = [session.query(full) for _ in range(8)]
+    seq_ms = (time.perf_counter() - t0) * 1e3
+    order = []
+
+    def submit_burst():
+        futs = [session.submit(full) for _ in range(8)]
+        for i, f in enumerate(futs):
+            f.add_done_callback(lambda _, i=i: order.append(i))
+        return [f.result(timeout=900) for f in futs]
+
+    t0 = time.perf_counter()
+    burst, launches = counted("submit burst", submit_burst)
+    burst_ms = (time.perf_counter() - t0) * 1e3
+    check(order == list(range(8)), f"futures resolved out of order: {order}")
+    for i, r in enumerate(seq + burst):
+        check_answer(np, r, oracle, kws, 10, f"pipeline answer {i}")
+    prof = profile_device(
+        torch, lambda: [f.result(timeout=900)
+                        for f in [session.submit(full) for _ in range(8)]],
+        {"fct_count": "fct_count_kernel"})
+    session.close()
+    print(f"[pipeline] 8 submits {burst_ms:.3f} ms against 8 sequential "
+          f"queries {seq_ms:.3f} ms (ratio {burst_ms / seq_ms:.4f}); FIFO; "
+          f"profile of one more burst of 8: {prof}; launches of the "
+          f"submit burst alone: {launches}", flush=True)
+    return launches
+
+
 # --- LM phases: recurrentgemma-2b prefill, decode and serve ------------------
 
 LM_ARCH = "recurrentgemma-2b"
@@ -592,6 +971,21 @@ def read_counts():
     launches = {k: v for m in kernels for k, v in m.LAUNCHES.items()}
     paths = {m.__name__.split(".")[-2]: dict(m.PATH_COUNTS) for m in opses}
     return launches, paths
+
+
+def counted(label, fn, kernels=("fct_count_exact_int32",)):
+    """Runs one path with every count set to 0 just before it and read just
+    after.  Fails unless each of ``kernels`` launched in that run and no op
+    took its plain version; returns (fn's result, the run's launches by
+    kernel, those above 0 only)."""
+    reset_all_counts()
+    out = fn()
+    launches, paths = read_counts()
+    for name in kernels:
+        check(launches[name] > 0, f"{label}: {name} never launched")
+    check(all(p["ref"] == 0 for p in paths.values()),
+          f"{label}: the plain version ran: {paths}")
+    return out, {k: v for k, v in launches.items() if v}
 
 
 def flash_cases(torch, np, dev):
@@ -1109,7 +1503,8 @@ def main() -> int:
                          f"of the plain version: {'; '.join(lm_lines)}")
 
     t0 = time.perf_counter()
-    launches, largest, session, req = run_main_path(torch, np, args, dev)
+    (launches, largest, session, req, schema,
+     oracles) = run_main_path(torch, np, args, dev)
     phase("main", t0, "every answer bit-equal to fct_star/topk_terms; "
                       "warm queries built 0 programs and uploaded 0 columns")
 
@@ -1146,13 +1541,37 @@ def main() -> int:
               f"{entry['all_rows_uniform_tokens_ms']:.4f} ms; bound "
               f"{entry['bound_ms']:.4f} ms on the non-zero rows' bytes, "
               f"{entry['padded_bound_ms']:.4f} ms on every token", flush=True)
-    del largest, session, tokens, weights
+    del largest, tokens, weights
     torch.cuda.empty_cache()
     phase("fct_timing", t0, "each fct_count instantiation bit-equal to its "
                             "plain version at the main path's largest call "
                             "per dtype, then the median of 20 CUDA-event "
                             "timings after 3 warm-up calls, and the same on "
                             "uniform tokens")
+
+    t0 = time.perf_counter()
+    path_launches, serve_smoke = run_serve(torch, np, args, dev, schema,
+                                           oracles, req)
+    phase("serve", t0, "every gateway, patched, post-append, re-query and "
+                       "device top-k answer bit-equal to fct_star/topk_terms; "
+                       "burst 2 all cache hits with 0 launches; the append "
+                       "uploaded only its chunk; fct_count int32 launched "
+                       "and no plain-version call in each path, counted "
+                       f"from 0 around it: {path_launches}; {serve_smoke}")
+
+    t0 = time.perf_counter()
+    path_launches["pipeline_submit"] = run_pipeline(
+        torch, np, session, req, oracles[req.keywords])
+    del session, schema, oracles
+    torch.cuda.empty_cache()
+    phase("pipeline", t0, "8 submits resolved in order, every answer "
+                          "bit-equal to the oracle; the burst alone launched "
+                          f"{path_launches['pipeline_submit']}, 0 "
+                          "plain-version calls")
+    # each serving path's launches of each fct_count kernel, under its name
+    for entry in report:
+        entry.update({f"{path}_launches": n.get(entry["name"], 0)
+                      for path, n in path_launches.items()})
 
     t0 = time.perf_counter()
     captured = run_lm_prefill(torch, args, dev)

@@ -3,7 +3,7 @@
 An :class:`FCTRequest` is everything a caller may vary per query; everything
 tied to the *dataset* (schema, tokenizer, mesh, engine, stop list) lives on
 the :class:`repro_torch.api.session.FCTSession`.  Requests are frozen and
-hashable so they can serve as memo keys.
+hashable so they can sit in pipeline queues and serve as memo keys.
 """
 from __future__ import annotations
 
@@ -37,6 +37,11 @@ class FCTRequest:
     rho: int = 4
     sample_frac: float = 1.0
     salt: int = 0
+    #: force the full-histogram path even on sessions with
+    #: ``SessionConfig.device_topk``: the caller needs ``all_freqs`` (the
+    #: gateway sets this on result-cache fills, which memoize the histogram
+    #: so later hits can re-slice any k from it)
+    need_histogram: bool = False
 
     def __post_init__(self) -> None:
         object.__setattr__(self, "keywords", tuple(self.keywords))
@@ -62,23 +67,39 @@ class FCTResponse:
     (device enqueue incl. store uploads), ``collect_ms`` (waiting for the
     device + histogram transfer), ``finalize_ms`` (top-k slice + term
     decode) — plus ``execute_ms`` (= dispatch + collect + finalize) and
-    ``total_ms`` (= plan + execute).  ``engine_stats`` is the *delta* of the
-    engine counters attributable to this query (for ``query_batch``, to the
-    whole batch — the dispatch is shared); ``cold`` is True iff that delta
-    includes at least one program build.
+    ``total_ms`` (= plan + execute).  The same keys appear on the sync,
+    batched, pipelined and gateway cache-hit paths (a hit reports zero
+    plan/dispatch/collect).  ``engine_stats`` is the *delta* of the engine
+    counters attributable to this query (for ``query_batch``, to the whole
+    batch — the dispatch is shared); ``cold`` is True iff that delta
+    includes at least one program build.  ``cache_hit`` marks responses the
+    serving gateway's :class:`repro_torch.serve.ResultCache` answered
+    without touching the engine (top-k re-sliced from the memoized full
+    histogram); ``coalesced`` marks responses that attached to an identical
+    in-flight query instead of dispatching their own (same zero-engine-cost
+    re-slice, but the histogram came from the leader request, not the
+    cache).
 
     ``trace`` is the request's :class:`repro_torch.obs.Trace` — the recorded
-    span tree (plan/dispatch/collect/finalize, plus store-upload spans).
+    span tree (plan/dispatch/collect/finalize, plus store-upload /
+    cache-lookup / batcher spans where they apply); ``trace.records()`` gives
+    structured dicts, ``repro_torch.obs.chrome_trace([...])`` a Chrome
+    trace_event document.
 
     ``accum_policy`` names the device-accumulation precision the histogram
     carries: ``"int32-checked"`` — exact below 2^31, wrap-around raises
-    instead of answering — or ``"int64-exact"``.
+    instead of answering — or ``"int64-exact"``.  The serving gateway
+    advertises it per tenant; cached and coalesced responses inherit the
+    master response's policy.
     """
 
     terms: List[str]
     term_ids: np.ndarray
     freqs: np.ndarray
-    all_freqs: np.ndarray
+    #: full frequency vector the top-k was drawn from — ``None`` on the
+    #: device-side top-k path (``finalize == "device_topk"``), whose whole
+    #: point is that the histogram never reaches the host
+    all_freqs: Optional[np.ndarray]
     n_cns: int
     n_joined_cns: int
     shuffle_rows: int
@@ -89,11 +110,47 @@ class FCTResponse:
     cold: bool
     request: Optional[FCTRequest] = None
     trace: Optional[object] = None       # repro_torch.obs.Trace (span tree)
+    cache_hit: bool = False
+    coalesced: bool = False
     accum_policy: str = "int32-checked"
     row_imbalance: float = 1.0   # dominant CN's ACHIEVED per-worker fact-row
     #                              imbalance (max/mean; ``imbalance`` above
     #                              is over LPT's estimated task costs)
+    #: which finalize ran: ``"host"`` (full histogram transferred, top-k
+    #: sliced in numpy) or ``"device_topk"`` (the fct_topk program returned
+    #: O(k) candidates; ``all_freqs`` is None)
+    finalize: str = "host"
+    #: the session data epoch this response's histogram reflects: bumped by
+    #: every ``FCTSession.append`` (and ``invalidate``).  A response is
+    #: computed against ONE epoch's snapshot end to end — a query racing an
+    #: append reports either the pre- or post-append epoch, never a mix
+    data_epoch: int = 0
 
     def topk(self) -> List[Tuple[str, int]]:
         """(term, freq) pairs with zero-frequency tail dropped."""
         return [(t, int(f)) for t, f in zip(self.terms, self.freqs) if f > 0]
+
+
+@dataclasses.dataclass(frozen=True)
+class AppendResult:
+    """Outcome of one :meth:`repro_torch.api.FCTSession.append` call.
+
+    ``base_rows`` is the relation's row count BEFORE the append — the
+    boundary delta dispatches use to restrict tuple sets to the new chunk.
+    ``data_epoch`` is the session epoch AFTER the append (unchanged when
+    ``rows_appended == 0``: an empty append is a no-op, nothing to fence).
+    ``tuple_sets_patched`` counts cached keyword tuple sets extended in
+    place (one cheap mask pass over the new rows each); ``plans_dropped``
+    counts invalidated routing plans (row routing does change — but CN
+    enumerations, built programs and the per-chunk device store survive,
+    which is what keeps post-append queries warm).
+    """
+
+    relation: str
+    role: str                 # "fact" | "dim"
+    dim_index: int            # -1 for the fact
+    base_rows: int
+    rows_appended: int
+    data_epoch: int
+    tuple_sets_patched: int = 0
+    plans_dropped: int = 0

@@ -32,9 +32,13 @@ PAD_ID = 0  # token id reserved for padding; never counted as a term
 class Relation:
     """A relation with dense int key columns and a fixed-width token matrix.
 
-    ``chunks`` records an append history as per-chunk row counts (None =
-    one chunk covering every row).  The runtime's device store does not
-    take multi-chunk relations yet (incremental ingest is not ported).
+    ``chunks`` records the append history as per-chunk row counts (None =
+    one chunk covering every row).  Appends are the ONLY mutation that
+    preserves derived state: :meth:`append_rows` returns a NEW Relation
+    whose column arrays are fresh concatenations — the old object (and any
+    plan/ref holding its arrays) keeps seeing the pre-append snapshot, and
+    a prefix of the new arrays is value-identical to the old ones, so
+    content-addressed device columns stay valid per chunk.
     """
 
     name: str
@@ -69,6 +73,59 @@ class Relation:
             key_domains=dict(self.key_domains),
             text=np.asarray(self.text[idx], np.int32),
         )
+
+    def append_rows(self, keys: Mapping[str, np.ndarray],
+                    text: np.ndarray,
+                    domain_overrides: Optional[Mapping[str, int]] = None
+                    ) -> "Relation":
+        """New Relation with ``text.shape[0]`` rows appended as one chunk.
+
+        Validates column set, dtypes, text width and key domains; an empty
+        append returns ``self`` unchanged (no new chunk).  The returned
+        relation's ``chunks`` grows by one entry; existing chunk boundaries
+        never move, so refs built against the old object stay exact.
+        ``domain_overrides`` grows named key domains (never shrinks them) —
+        a dimension append introduces fresh primary-key values, and
+        :meth:`StarSchema.with_appended` mirrors the growth into the fact's
+        foreign-key domain to keep the schema invariant.
+        """
+        n_new = int(text.shape[0])
+        if n_new == 0:
+            return self
+        if set(keys) != set(self.keys):
+            raise ValueError(
+                f"append to {self.name!r} must provide exactly the key "
+                f"columns {sorted(self.keys)}, got {sorted(keys)}")
+        if text.shape[1:] != self.text.shape[1:]:
+            raise ValueError(
+                f"append to {self.name!r}: text width {text.shape[1:]} != "
+                f"{self.text.shape[1:]}")
+        text = np.ascontiguousarray(text, np.int32)
+        new_domains = dict(self.key_domains)
+        for col, dom in (domain_overrides or {}).items():
+            if dom < new_domains[col]:
+                raise ValueError(
+                    f"append to {self.name!r}: key domain {col!r} cannot "
+                    f"shrink ({new_domains[col]} -> {dom})")
+            new_domains[col] = int(dom)
+        new_keys = {}
+        for col, arr in keys.items():
+            arr = np.ascontiguousarray(arr, np.int32)
+            if arr.shape != (n_new,):
+                raise ValueError(
+                    f"append to {self.name!r}: key column {col!r} has shape "
+                    f"{arr.shape}, expected ({n_new},)")
+            dom = new_domains[col]
+            if arr.size and (arr.min() < 0 or arr.max() >= dom):
+                raise ValueError(
+                    f"append to {self.name!r}: key column {col!r} outside "
+                    f"[0, {dom})")
+            new_keys[col] = np.concatenate([self.keys[col], arr])
+        old_chunks = self.chunks if self.chunks is not None else (self.rows,)
+        return Relation(
+            name=self.name, keys=new_keys, key_domains=new_domains,
+            text=np.concatenate([self.text, text]),
+            chunks=old_chunks + (n_new,))
 
     @classmethod
     def from_arrays(cls, name: str, keys: Mapping[str, np.ndarray],
@@ -121,6 +178,53 @@ class StarSchema:
 
     def dim_keys(self, i: int) -> np.ndarray:
         return self.dims[i].keys[self.edges[i].dim_col]
+
+    def relation_role(self, name: str) -> Tuple[str, int]:
+        """("fact", -1) or ("dim", i) for a relation name; KeyError else."""
+        if name == self.fact.name:
+            return "fact", -1
+        for i, dim in enumerate(self.dims):
+            if dim.name == name:
+                return "dim", i
+        raise KeyError(f"unknown relation {name!r} (fact is "
+                       f"{self.fact.name!r}, dims are "
+                       f"{[d.name for d in self.dims]})")
+
+    def with_appended(self, name: str, keys: Mapping[str, np.ndarray],
+                      text: np.ndarray) -> "StarSchema":
+        """New StarSchema with rows appended to one relation as a chunk.
+
+        The receiver is NOT mutated: callers that hold the old object (plans
+        in flight, cached tuple sets) keep a consistent pre-append snapshot.
+        Unchanged relations are shared by reference.
+
+        A dimension append may introduce primary-key values past the current
+        domain (new dim rows ARE new keys); the domain grows to cover them
+        and the fact's matching foreign-key domain grows in lockstep (the
+        schema invariant ``d_fact == d_dim``) — its column arrays are still
+        shared, only the metadata dict is replaced.  Fact appends must
+        reference existing dimension keys.
+        """
+        role, i = self.relation_role(name)
+        if role == "fact":
+            return StarSchema(fact=self.fact.append_rows(keys, text),
+                              dims=self.dims, edges=self.edges,
+                              vocab_size=self.vocab_size)
+        edge = self.edges[i]
+        dims = list(self.dims)
+        pk = np.asarray(keys[edge.dim_col]) if edge.dim_col in keys else None
+        new_dom = dims[i].key_domains[edge.dim_col]
+        if pk is not None and pk.size:
+            new_dom = max(new_dom, int(pk.max()) + 1)
+        dims[i] = dims[i].append_rows(
+            keys, text, domain_overrides={edge.dim_col: new_dom})
+        fact = self.fact
+        if new_dom != fact.key_domains[edge.fact_col]:
+            fact = dataclasses.replace(
+                fact, key_domains={**fact.key_domains,
+                                   edge.fact_col: new_dom})
+        return StarSchema(fact=fact, dims=tuple(dims), edges=self.edges,
+                          vocab_size=self.vocab_size)
 
     @classmethod
     def from_arrays(cls, fact: Mapping, dims: Sequence[Mapping],

@@ -11,7 +11,10 @@ them to 32 bits) and an ``int`` return, the kernel's ``cudaGetLastError()``.
 When ``nvcc`` is missing or the build fails, ``load`` raises: there is no
 fallback.  ``launch`` runs one launcher on PyTorch's current stream, raises
 on a non-zero return and counts the launch in ``launches``, which moves
-nowhere else.
+nowhere else.  Launch counts and the ops' path counts move through
+:func:`bump` and :func:`reset_counts` under one process-wide lock, so they
+stay exact when several threads dispatch (the serving gateway's flush pool,
+the submit pipeline).
 """
 from __future__ import annotations
 
@@ -35,6 +38,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # ctypes argument kinds of the exported C functions
 PTR, I32, I64, F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                       ctypes.c_float)
+
+_COUNT_LOCK = threading.Lock()
+
+
+def bump(counts: Dict[str, int], key: str) -> None:
+    """``counts[key] += 1``, exact under threads."""
+    with _COUNT_LOCK:
+        counts[key] += 1
+
+
+def reset_counts(counts: Dict[str, int]) -> None:
+    """Every entry of ``counts`` to 0, under the same lock as :func:`bump`."""
+    with _COUNT_LOCK:
+        for k in counts:
+            counts[k] = 0
 
 
 def nvcc() -> str:
@@ -118,11 +136,10 @@ class Library:
             err = fn(*args, stream)
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
-        self.launches[kernel] += 1
+        bump(self.launches, kernel)
 
     def reset_launches(self) -> None:
-        for k in self.launches:
-            self.launches[k] = 0
+        reset_counts(self.launches)
 
 
 def build_all(libraries: Sequence[Library]) -> None:

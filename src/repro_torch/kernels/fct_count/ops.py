@@ -19,14 +19,14 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.fct_count import kernel, ref
 
 PATH_COUNTS = {"ref": 0, "cuda_exact": 0, "cuda_float": 0}
 
 
 def reset_path_counts() -> None:
-    for k in PATH_COUNTS:
-        PATH_COUNTS[k] = 0
+    _build.reset_counts(PATH_COUNTS)
 
 
 def weighted_histogram(tokens: torch.Tensor, weights: torch.Tensor,
@@ -43,13 +43,13 @@ def weighted_histogram(tokens: torch.Tensor, weights: torch.Tensor,
     if backend == "auto":
         backend = "cuda" if tokens.is_cuda else "ref"
     if backend == "ref":
-        PATH_COUNTS["ref"] += 1
+        _build.bump(PATH_COUNTS, "ref")
         out = ref.weighted_histogram(tokens, weights, vocab)
     elif backend == "cuda":
         out = kernel.fct_count(tokens.contiguous(), weights.contiguous(),
                                vocab)
-        PATH_COUNTS["cuda_float" if weights.dtype.is_floating_point
-                    else "cuda_exact"] += 1
+        _build.bump(PATH_COUNTS, "cuda_float"
+                    if weights.dtype.is_floating_point else "cuda_exact")
     else:
         raise ValueError(f"unknown fct_count backend {backend!r}")
     return out[0] if unbatched else out

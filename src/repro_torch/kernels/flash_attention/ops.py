@@ -19,14 +19,14 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel, ref
 
 PATH_COUNTS = {"ref": 0, "cuda": 0}
 
 
 def reset_path_counts() -> None:
-    for k in PATH_COUNTS:
-        PATH_COUNTS[k] = 0
+    _build.reset_counts(PATH_COUNTS)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -37,11 +37,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if backend == "auto":
         backend = "cuda" if q.is_cuda else "ref"
     if backend == "ref":
-        PATH_COUNTS["ref"] += 1
+        _build.bump(PATH_COUNTS, "ref")
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    block_q=block_q, block_k=block_k)
     if backend == "cuda":
         out = kernel.flash_attention(q, k, v, causal=causal, window=window)
-        PATH_COUNTS["cuda"] += 1
+        _build.bump(PATH_COUNTS, "cuda")
         return out
     raise ValueError(f"unknown flash_attention backend {backend!r}")

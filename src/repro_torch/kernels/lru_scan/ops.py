@@ -15,14 +15,14 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.lru_scan import kernel, ref
 
 PATH_COUNTS = {"ref": 0, "cuda": 0}
 
 
 def reset_path_counts() -> None:
-    for k in PATH_COUNTS:
-        PATH_COUNTS[k] = 0
+    _build.reset_counts(PATH_COUNTS)
 
 
 def lru_scan(a: torch.Tensor, b: torch.Tensor,
@@ -32,10 +32,10 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor,
     if backend == "auto":
         backend = "cuda" if a.is_cuda else "ref"
     if backend == "ref":
-        PATH_COUNTS["ref"] += 1
+        _build.bump(PATH_COUNTS, "ref")
         return ref.lru_scan(a, b)
     if backend == "cuda":
         out = kernel.lru_scan(a.contiguous(), b.contiguous())
-        PATH_COUNTS["cuda"] += 1
+        _build.bump(PATH_COUNTS, "cuda")
         return out
     raise ValueError(f"unknown lru_scan backend {backend!r}")

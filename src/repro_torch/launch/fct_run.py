@@ -2,11 +2,14 @@
 through the session service API.
 
     python -m repro_torch.launch.fct_run --keywords alps bordeaux --top-k 8 \
-        --mode skew --rho 4 --scale 2 --repeat 3 [--device cpu] [--workers 8]
+        --mode skew --rho 4 --scale 2 --repeat 3 [--device cpu] [--workers 8] \
+        [--trace-out trace.json]
 
 Runs on the CUDA device by default (``--device cpu`` to run on the CPU).
 ``--repeat`` re-runs the query to show the warm latency next to the cold one;
 the cold/warm label comes from the engine's program-build delta of that rep.
+``--trace-out`` writes every rep's span tree as Chrome trace-event JSON
+(chrome://tracing or Perfetto).
 """
 from __future__ import annotations
 
@@ -31,10 +34,14 @@ def main(argv=None):
                     help="torch device to run on (default cuda)")
     ap.add_argument("--workers", type=int, default=1,
                     help="P, virtual MapReduce workers on the device")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write every rep's span tree as Chrome trace-event "
+                         "JSON (chrome://tracing / Perfetto)")
     args = ap.parse_args(argv)
 
     from repro_torch.api import FCTRequest, FCTSession
     from repro_torch.data.demo import TOK, build_db
+    from repro_torch.obs import write_chrome_trace
 
     schema = build_db(n_fact=int(2000 * args.scale))
     session = FCTSession(schema, device=args.device, n_workers=args.workers,
@@ -42,11 +49,12 @@ def main(argv=None):
     req = FCTRequest(keywords=tuple(args.keywords), top_k=args.top_k,
                      r_max=args.r_max, mode=args.mode, rho=args.rho,
                      sample_frac=args.sample_frac)
-    res = None
+    res, traces = None, []
     for rep in range(max(1, args.repeat)):
         t0 = time.perf_counter()
         res = session.query(req)
         ms = (time.perf_counter() - t0) * 1e3
+        traces.append(res.trace)
         label = "cold" if res.cold else "warm"
         t = res.timings
         print(f"run {rep} ({label}): {ms:.1f}ms "
@@ -68,6 +76,10 @@ def main(argv=None):
           f"plan cache {st['plan_hits']} hits")
     for word, freq in res.topk():
         print(f"  {word:16s} {freq}")
+    if args.trace_out:
+        n_events = write_chrome_trace(args.trace_out, traces)
+        print(f"trace -> {args.trace_out} ({len(traces)} reps, "
+              f"{n_events} events)")
 
 
 if __name__ == "__main__":

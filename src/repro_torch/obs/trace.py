@@ -1,11 +1,12 @@
 """Per-request trace/span recording, lock-free per thread.
 
-Every ``FCTRequest`` gets a ``Trace`` (created in ``FCTSession._plan``)
-carrying a process-unique request id.  Spans record into a per-thread buffer
-inside the trace — appends touch only this thread's list, and the dict
-insert / list append are single bytecode-level operations the GIL makes
-atomic, so recording takes no lock on the hot path.  ``spans()`` copies the
-buffers, which is safe against concurrent appends for the same reason.
+Every ``FCTRequest`` gets a ``Trace`` (created in ``FCTSession._plan`` or at
+the gateway edge) carrying a process-unique request id.  Spans record into a
+per-thread buffer inside the trace — appends touch only this thread's list,
+and the dict insert / list append are single bytecode-level operations the
+GIL makes atomic, so recording takes no lock on the hot path.  Readers
+(``records()`` / ``chrome_events()``) copy the buffers, which is safe against
+concurrent appends for the same reason.
 
 Two recording styles:
 
@@ -15,11 +16,13 @@ Two recording styles:
   ``span()`` is a cheap no-op when no trace is active, so library code can
   instrument unconditionally.
 * ``trace.add_span(name, t0_ns, dur_ns, **args)`` records an explicitly
-  timed span from any thread (the session's dispatch, collect and finalize
-  phases, timed around work shared by several requests).
+  timed span from any thread (used on the pipelined path where dispatch and
+  finalize run on different threads than plan, and for batcher queue-wait
+  windows measured after the fact).
 
 Timestamps are ``time.perf_counter_ns`` — monotonic and shared across
-threads of one process.
+threads of one process, which is what Chrome's trace viewer needs to line
+spans up.
 """
 from __future__ import annotations
 
@@ -98,6 +101,48 @@ class Trace:
             out.extend(list(buf))
         out.sort(key=lambda s: (s.t0_ns, s.span_id))
         return out
+
+    def span_names(self) -> List[str]:
+        return [s.name for s in self.spans()]
+
+    def records(self) -> List[Dict[str, Any]]:
+        """Structured per-span dicts (what ``FCTResponse.trace`` consumers
+        serialize); offsets are relative to trace start, microseconds."""
+        return [{
+            "request_id": self.request_id,
+            "name": s.name,
+            "span_id": s.span_id,
+            "parent_id": s.parent_id,
+            "t0_us": round((s.t0_ns - self.t0_ns) / 1e3, 3),
+            "dur_us": round(s.dur_ns / 1e3, 3),
+            "thread_id": s.thread_id,
+            "args": dict(s.args),
+        } for s in self.spans()]
+
+    def chrome_events(self) -> List[Dict[str, Any]]:
+        """Chrome ``trace_event`` complete ("X") events.  pid = request
+        sequence number so chrome://tracing groups each request into its own
+        process row; tid = the real OS thread id."""
+        digits = "".join(ch for ch in self.request_id if ch.isdigit())
+        pid = int(digits) if digits else (hash(self.request_id) & 0x7FFF) + 1
+        events: List[Dict[str, Any]] = [{
+            "name": "process_name", "ph": "M", "pid": pid, "tid": 0,
+            "args": {"name": self.request_id},
+        }]
+        for s in self.spans():
+            events.append({
+                "name": s.name, "ph": "X", "pid": pid, "tid": s.thread_id,
+                "ts": round(s.t0_ns / 1e3, 3), "dur": round(s.dur_ns / 1e3, 3),
+                "args": {**s.args, "request_id": self.request_id,
+                         "span_id": s.span_id, "parent_id": s.parent_id},
+            })
+        return events
+
+
+def current_trace() -> Optional[Trace]:
+    """The trace activated on this thread, if any."""
+    state = getattr(_TLS, "state", None)
+    return state[0] if state is not None else None
 
 
 @contextmanager

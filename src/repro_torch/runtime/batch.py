@@ -63,13 +63,19 @@ class PlanSignature:
     ``accum`` is the device accumulation policy (int32-checked vs
     int64-exact): it changes the dtype of every volume/histogram in the
     program body, so it is as much a part of the program's identity as the
-    shapes are."""
+    shapes are.
+
+    ``k_bucket`` identifies the top-k finalize family (``fct_topk``): the
+    pow-2-bucketed candidate count each worker keeps, 0 for histogram
+    programs.  Bucketing k the same way as shapes means nearby ``top_k``
+    requests (k=10 and k=12, say) reuse one program."""
 
     n_devices: int
     vocab: int
     fact: RelationSig
     dims: Tuple[RelationSig, ...]
     accum: AccumPolicy = INT32_CHECKED
+    k_bucket: int = 0
 
     @property
     def m(self) -> int:

@@ -76,6 +76,18 @@ class ExecutableCache:
         self._c_misses = self.metrics.counter("executable_cache.misses")
         self._c_traces = self.metrics.counter("executable_cache.traces")
 
+    @property
+    def max_entries(self) -> Optional[int]:
+        return self._fns.max_entries
+
+    @property
+    def evictions(self) -> int:
+        return self._fns.evictions
+
+    @property
+    def traces(self) -> int:
+        return self._c_traces.value
+
     def get_or_build(self, key: Hashable, builder: Callable[[], Callable]):
         """Return the cached program for ``key``, building it on first use.
 

@@ -24,17 +24,24 @@ the CN axis (single-query ``query``) and ``fct_store_percn`` keeps it, with
 the CN axis rounded up to a multiple of ``CN_BUCKET_MIN`` by null CNs, so CNs
 of different queries can share one dispatch (``query_batch``).
 
+A third family, ``fct_topk``, finalizes on the device: the aggregated
+histogram stays device-resident and only O(k) candidates (counts, term ids,
+a wrap flag) reach the host (``dispatch_topk`` / ``collect_topk``).
+
 Dispatch enqueues device work and returns the lazy tensor; collection
-(``.cpu()``) is the only point that waits on the device.  Integer histograms
-make the batched sum exactly associative, so ``all_freqs`` is bit-identical to
-the per-CN path as long as every term's total fits the policy width.  Under
+(``.cpu()``) is the only point that waits on the device (the opt-in
+``threshold`` pruning of ``dispatch_topk`` adds one O(k) probe).  Integer
+histograms make the batched sum exactly associative, so ``all_freqs`` is
+bit-identical to the per-CN path as long as every term's total fits the
+policy width.  Under
 ``INT32_CHECKED`` the host collection raises OverflowError on wrap-around
 (negative totals, best-effort); under ``INT64_EXACT`` everything accumulates
 in int64.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import dataclasses
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,11 +52,20 @@ from repro_torch.core.plan import CNPlan
 from repro_torch.launch.mesh import VirtualMesh
 from repro_torch.obs import default_registry
 from repro_torch.obs import span as obs_span
-from repro_torch.runtime.batch import PlanSignature, group_plan_indices
+from repro_torch.runtime.batch import (BUCKET_MIN, PlanSignature, RelationSig,
+                                       bucket_pow2, group_plan_indices)
 from repro_torch.runtime.cache import ExecutableCache, default_cache
 from repro_torch.runtime.store import RelationStore, store_group_args
 
 CN_BUCKET_MIN = 4  # floor for bucketing the per-CN-output programs' N axis
+TOPK_BUCKET_MIN = 16  # floor for bucketing the fct_topk family's k axis
+KW_BUCKET_MIN = 8  # floor for padding the keyword-exclusion id vector
+
+#: structural filler for the fct_topk family's PlanSignature: the finalize
+#: program reads no relations (its input is the already-aggregated
+#: histogram), but the signature type is shared with the histogram families,
+#: so the relation slot carries one fixed minimal shape.
+_TOPK_REL = RelationSig(rows=BUCKET_MIN, cap=BUCKET_MIN, text_len=BUCKET_MIN)
 
 
 def vocab_padded(vocab: int, n_devices: int) -> int:
@@ -112,6 +128,115 @@ def _build_store_fn(sig: PlanSignature, mesh: VirtualMesh, n_stack: int,
     return program
 
 
+def topk_signature(vocab: int, n_devices: int, accum: AccumPolicy,
+                   k: int) -> PlanSignature:
+    """Signature of the ``fct_topk`` finalize program for a top-``k``
+    request.  ``k_bucket`` rounds ``k + 1`` up to a power of two (floor
+    ``TOPK_BUCKET_MIN``): the ``+1`` keeps the (k+1)-th count in the
+    candidate set — the threshold the pruning loop compares remaining group
+    bounds against — and bucketing lets nearby k share one program."""
+    return PlanSignature(n_devices=n_devices, vocab=vocab, fact=_TOPK_REL,
+                         dims=(), accum=accum,
+                         k_bucket=bucket_pow2(k + 1, TOPK_BUCKET_MIN))
+
+
+def k_effective(sig: PlanSignature) -> int:
+    """Candidates the finalize program returns: ``k_bucket`` clamped to the
+    vocab (a top-k past the vocab size is just the whole excluded vocab)."""
+    return min(sig.k_bucket, sig.vocab)
+
+
+def keyword_ids_array(keywords: Sequence[int]) -> np.ndarray:
+    """Keyword-exclusion ids as int32, ``-1``-padded to a pow-2 width (the
+    width rides the program-cache key): ``-1`` never equals a vocab id, so
+    pad slots exclude nothing."""
+    kw_pad = bucket_pow2(max(len(keywords), 1), KW_BUCKET_MIN)
+    out = np.full((kw_pad,), -1, np.int32)
+    if len(keywords):
+        out[:len(keywords)] = list(keywords)
+    return out
+
+
+def _top(values: torch.Tensor, k: int):
+    """(values, positions) of the ``k`` largest along the last axis, equal
+    values in ascending position — the order ``lax.top_k`` promises and
+    ``torch.topk`` does not: a stable descending sort, sliced."""
+    v, pos = torch.sort(values, dim=-1, descending=True, stable=True)
+    return v[..., :k], pos[..., :k]
+
+
+def _build_topk_fn(sig: PlanSignature, mesh: VirtualMesh):
+    """Finalize program of the ``fct_topk`` family.
+
+    Input is the device-resident aggregated histogram in the engine's
+    aggregation layout (on P > 1 workers the reduce-scatter layout, padded to
+    a multiple of P, worker w owning bins ``[w*shard, (w+1)*shard)``; on one
+    worker the psum layout, the whole vocab), the host keyword ids and
+    an int8 stop/PAD exclusion vector in the histogram's layout.  On the
+    virtual mesh, for each worker's shard:
+
+      1. flag wrap-around (any negative bin) BEFORE exclusions — the
+         INT32_CHECKED overflow check runs on the device, so the host never
+         has to read the O(vocab) histogram to enforce it,
+      2. zero the excluded bins (keywords by id equality, stopwords/PAD via
+         the mask), matching the host oracle, which zeroes before slicing,
+         and set reduce-scatter vocab-pad bins to ``-1`` so they sort
+         strictly below every real (nonnegative, post-exclusion) bin,
+      3. take the shard's local top-k — O(k) candidates per worker,
+      4. concatenate the workers' (count, id) candidates worker-major (the
+         reference's tiled ``all_gather`` over the SMALL k axis) and take
+         the top ``k_eff`` of the ``P * shard_k`` candidates.
+
+    Ties go to the LOWEST term id, as in the host oracle's stable
+    ``argsort(-f)``: each selection keeps equal values in ascending position
+    (``_top``), shard-local positions map to ascending global ids, and the
+    worker-major concatenation keeps ids ascending within each count.
+
+    One worker skips the gather: its one shard is the whole vocab.  Returns ``(counts [k_eff] policy dtype,
+    ids [k_eff] int32, wrapped int32 scalar)``, all on the device.
+    """
+    vocab, n_shards = sig.vocab, sig.n_devices
+    vp = vocab_padded(vocab, n_shards)
+    shard = vp // n_shards
+    k_eff = k_effective(sig)
+    shard_k = min(k_eff, shard)
+    device = mesh.device
+
+    def program(hist: torch.Tensor, kw: np.ndarray, excl: torch.Tensor):
+        # hist [vp] acc · kw [pow-2 width] int32 (-1 pads) · excl [vp] int8
+        kw_t = torch.from_numpy(kw).to(device)
+        wrapped = (hist < 0).any().to(torch.int32)
+        ids = torch.arange(vp, dtype=torch.int32, device=device)
+        is_kw = (ids[:, None] == kw_t[None, :]).any(dim=1)
+        h = torch.where(is_kw | (excl != 0), 0, hist)
+        if vp != vocab:
+            h = torch.where(ids >= vocab, -1, h)
+        v, local = _top(h.view(n_shards, shard), shard_k)
+        cand = ids.view(n_shards, shard).gather(1, local)
+        if n_shards == 1:
+            return v[0, :k_eff], cand[0, :k_eff], wrapped
+        fv, pos = _top(v.reshape(-1), k_eff)   # worker-major candidates
+        return fv, cand.reshape(-1)[pos], wrapped
+
+    return program
+
+
+@dataclasses.dataclass
+class TopkPending:
+    """Pending handle of :meth:`FCTEngine.dispatch_topk`: lazy O(k) device
+    outputs plus the pruning ledger.  Block via
+    :meth:`FCTEngine.collect_topk`."""
+
+    counts: torch.Tensor  # lazy [k_eff] device tensor, policy dtype
+    ids: torch.Tensor     # lazy [k_eff] int32 global term ids
+    wrapped: torch.Tensor  # lazy int32 scalar overflow flag
+    k_eff: int
+    vocab: int
+    groups_run: int
+    groups_pruned: int
+    pruned_rows: int
+
+
 class FCTEngine:
     """Query execution runtime: shape-bucketed program cache + batched
     multi-CN dispatch over the session's device-resident store.  The
@@ -119,7 +244,9 @@ class FCTEngine:
 
     ``bytes_shipped`` counts host→device argument bytes per dispatch (send
     tables and key-column indices; store uploads are accounted by the
-    RelationStore itself); ``device_to_host_bytes`` counts collection.
+    RelationStore itself); ``device_to_host_bytes`` counts collection;
+    ``groups_pruned`` / ``pruned_rows`` count the signature groups (and
+    their routed fact rows) the top-k family skipped.
 
     Multi-worker aggregates come back in the reduce-scatter layout (vocab
     padded to a multiple of P), one worker's in the psum layout; both give
@@ -135,6 +262,12 @@ class FCTEngine:
         self._c_cns = self.metrics.counter("engine.cns_run")
         self._c_bytes = self.metrics.counter("engine.bytes_shipped")
         self._c_d2h = self.metrics.counter("engine.device_to_host_bytes")
+        self._c_groups_pruned = self.metrics.counter("engine.groups_pruned")
+        self._c_pruned_rows = self.metrics.counter("engine.pruned_rows")
+
+    @property
+    def batches_run(self) -> int:
+        return self._c_batches.value
 
     def _dispatch(self, sig: PlanSignature, group: Sequence[CNPlan],
                   mesh: VirtualMesh, reduce_cns: bool,
@@ -225,12 +358,180 @@ class FCTEngine:
             out[idxs] = self._collect(lazy)[:len(idxs), :vocab]
         return out
 
+    def vocab_device_vector(self, vec: np.ndarray, mesh: VirtualMesh,
+                            dtype) -> torch.Tensor:
+        """Upload a host ``[vocab]`` vector in the engine's aggregation
+        layout — the layout group outputs arrive in: zero-padded to a
+        multiple of P on multi-worker meshes (the reduce-scatter layout),
+        as is on one worker — so the caller can add it to (or feed it
+        beside) device-resident histograms.  Counted as shipped bytes."""
+        arr = np.asarray(vec).astype(dtype, copy=True)
+        if mesh.size > 1:
+            vp = vocab_padded(len(arr), mesh.size)
+            if vp != len(arr):
+                arr = np.pad(arr, (0, vp - len(arr)))
+        self._c_bytes.inc(arr.nbytes)
+        return torch.from_numpy(arr).to(mesh.device)
+
+    @staticmethod
+    def _plan_rows(plans: Sequence[CNPlan], idxs: Sequence[int]) -> int:
+        """Total routed fact rows of a set of plans (pruning ledger)."""
+        return int(sum(int(plans[i].device_rows.sum()) for i in idxs
+                       if plans[i].device_rows is not None))
+
+    def dispatch_topk(self, plans: Sequence[CNPlan], mesh: VirtualMesh,
+                      k: int, *, keywords: Sequence[int] = (), excl=None,
+                      host_extra=None, store: Optional[RelationStore] = None,
+                      accum: Optional[AccumPolicy] = None,
+                      prune: str = "zero") -> TopkPending:
+        """Async top-k run: dispatch every signature group, keep the
+        aggregated histogram DEVICE-RESIDENT (group outputs are summed on
+        the device, never transferred), and finalize with the ``fct_topk``
+        program — the pending handle resolves to O(k) candidates, not the
+        O(vocab) histogram.
+
+        ``prune`` is the cross-CN-group pruning mode, bounding each group's
+        maximum possible contribution by its plans' total volume-weighted
+        token mass (``CNPlan.contrib_bound``):
+
+        * ``"off"`` — dispatch every group.
+        * ``"zero"`` (default) — skip groups whose summed bound is exactly
+          0.0: they provably contribute nothing to any term, so results
+          stay bit-identical to the unpruned path.
+        * ``"threshold"`` — additionally process groups in descending
+          bound order and, after each, probe the running k-th and (k+1)-th
+          counts (an O(k) transfer, the one wait inside a dispatch); once
+          ``θ_k > θ_{k+1} + Σ remaining bounds``, no remaining group can
+          displace any current top-k term and the whole suffix is skipped.
+          The top-k SET is exact; the reported counts/order are those of
+          the processed prefix (lower bounds), which is why this mode is
+          opt-in.
+
+        ``keywords`` and ``excl`` (an int8 stop/PAD mask from
+        :meth:`vocab_device_vector`) reproduce the host oracle's exclusions
+        on the device; ``host_extra`` is an optional device-resident
+        histogram in the same layout added to the group total — sessions
+        use it for map-only single-relation CNs, which have no routed plans.
+        """
+        if not plans:
+            raise ValueError("dispatch_topk needs at least one plan")
+        if prune not in ("off", "zero", "threshold"):
+            raise ValueError(f"unknown prune mode {prune!r}")
+        if store is None:
+            store = RelationStore(mesh, metrics=self.metrics)
+        accum = accum if accum is not None else INT32_CHECKED
+        vocab = plans[0].vocab_size
+        groups = group_plan_indices(plans, accum)
+        sig0 = groups[0][0]
+        tsig = topk_signature(vocab, sig0.n_devices, sig0.accum, k)
+        kw = keyword_ids_array(keywords)
+        if excl is None:
+            excl = self.vocab_device_vector(np.zeros(vocab, np.int8), mesh,
+                                            np.int8)
+        key = ("fct_topk", tsig, len(kw), mesh)
+        topk_fn = self.cache.get_or_build(
+            key, lambda: _build_topk_fn(tsig, mesh))
+        self._c_bytes.inc(kw.nbytes)
+
+        bounds = [sum(plans[i].contrib_bound for i in idxs)
+                  for _, idxs in groups]
+        run_list = list(range(len(groups)))
+        g_pruned = rows_pruned = 0
+        if prune != "off":
+            keep = [g for g in run_list if bounds[g] != 0.0]
+            zero = [g for g in run_list if bounds[g] == 0.0]
+            if not keep and host_extra is None and zero:
+                # keep one group so a device histogram exists at all
+                keep, zero = zero[:1], zero[1:]
+            for g in zero:
+                g_pruned += 1
+                rows_pruned += self._plan_rows(plans, groups[g][1])
+            run_list = keep
+        if prune == "threshold":
+            run_list.sort(key=lambda g: -bounds[g])
+
+        total = host_extra
+        groups_run = 0
+        kk = min(k, vocab)
+        for pos, g in enumerate(run_list):
+            sig, idxs = groups[g]
+            lazy = self._dispatch(sig, [plans[i] for i in idxs], mesh,
+                                  reduce_cns=True, store=store)
+            total = lazy if total is None else total + lazy
+            groups_run += 1
+            rest = run_list[pos + 1:]
+            if prune == "threshold" and rest and kk + 1 <= tsig.k_bucket:
+                # O(k) probe of the running counts: prune the suffix once
+                # even its combined mass cannot displace the k-th count
+                head = topk_fn(total, kw, excl)[0].cpu().numpy()
+                self._c_d2h.inc(head.nbytes)
+                b_rest = sum(bounds[r] for r in rest)
+                if kk < len(head) and \
+                        float(head[kk - 1]) > float(head[kk]) + b_rest:
+                    for r in rest:
+                        g_pruned += 1
+                        rows_pruned += self._plan_rows(plans, groups[r][1])
+                    break
+
+        with obs_span("engine.topk_finalize", k=k, k_eff=k_effective(tsig),
+                      n_groups=len(groups), groups_pruned=g_pruned):
+            counts, ids, wrapped = topk_fn(total, kw, excl)
+        if g_pruned:
+            self._c_groups_pruned.inc(g_pruned)
+            self._c_pruned_rows.inc(rows_pruned)
+        return TopkPending(counts=counts, ids=ids, wrapped=wrapped,
+                           k_eff=k_effective(tsig), vocab=vocab,
+                           groups_run=groups_run, groups_pruned=g_pruned,
+                           pruned_rows=rows_pruned)
+
+    def collect_topk(self, tp: TopkPending
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """Block on a :meth:`dispatch_topk` handle:
+        ``(term_ids[k_eff], counts[k_eff])`` int64, exclusion-masked and
+        tie-broken by lowest term id — the O(k) transfer this family
+        exists for.  Raises OverflowError when the device-side wrap flag
+        is set (the INT32_CHECKED contract, checked on the device over the
+        full histogram)."""
+        counts = tp.counts.cpu().numpy()
+        ids = tp.ids.cpu().numpy()
+        wrapped = tp.wrapped.cpu().numpy()
+        self._c_d2h.inc(counts.nbytes + ids.nbytes + wrapped.nbytes)
+        if int(wrapped):
+            # same failure contract/message as the host-side wrap check
+            AccumPolicy.for_dtype(counts.dtype).check_totals(
+                np.full((1,), -1, counts.dtype))
+        return ids.astype(np.int64), counts.astype(np.int64)
+
+    def run_plans(self, plans: Sequence[CNPlan], mesh: VirtualMesh,
+                  store: Optional[RelationStore] = None,
+                  accum: Optional[AccumPolicy] = None) -> np.ndarray:
+        """Total freq[vocab] (int64) over all joined-CN plans."""
+        pending = self.dispatch_plans(plans, mesh, store=store, accum=accum)
+        return self.collect_total(pending, plans[0].vocab_size)
+
+    def run_plans_individual(self, plans: Sequence[CNPlan],
+                             mesh: VirtualMesh,
+                             store: Optional[RelationStore] = None,
+                             accum: Optional[AccumPolicy] = None
+                             ) -> np.ndarray:
+        """Per-plan freq[len(plans), vocab] (int64): plans from different
+        queries may share one dispatch (same signature -> one stacked
+        program); the per-CN output axis lets the caller attribute each
+        histogram to its owning query."""
+        pending = self.dispatch_plans(plans, mesh, individual=True,
+                                      store=store, accum=accum)
+        return self.collect_individual(pending, len(plans),
+                                       plans[0].vocab_size)
+
     def stats(self) -> dict:
         out = self.cache.stats()
-        batches, cns, shipped, d2h = self.metrics.values(
-            self._c_batches, self._c_cns, self._c_bytes, self._c_d2h)
+        (batches, cns, shipped, d2h, g_pruned,
+         rows_pruned) = self.metrics.values(
+            self._c_batches, self._c_cns, self._c_bytes, self._c_d2h,
+            self._c_groups_pruned, self._c_pruned_rows)
         out.update(batches_run=batches, cns_run=cns, bytes_shipped=shipped,
-                   device_to_host_bytes=d2h)
+                   device_to_host_bytes=d2h, groups_pruned=g_pruned,
+                   pruned_rows=rows_pruned)
         return out
 
 

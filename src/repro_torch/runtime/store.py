@@ -18,10 +18,15 @@ in flight.
 
 Counters follow the runtime convention: ``store_uploads`` / ``store_hits``
 (reuse), ``store_upload_bytes`` (cumulative host→device column traffic),
-``store_bytes`` (currently resident), ``store_evictions``.
+``store_bytes`` (currently resident), ``store_evictions``, and
+``store_chunk_assembles`` (entries built on the device from resident
+per-chunk entries after an append, with no column traffic).
 
 Refs over relations with several append chunks (``RelationRef.chunk_parts``)
-belong to incremental ingest, which is not ported: the store raises on them.
+are stored per chunk: each part is an entry of its own, content-addressed
+like any ref, and the full ref's entry is assembled from the parts on the
+device (``_assemble``), bit-identical to a direct upload.  So an append
+ships its new chunk, not the relation.
 """
 from __future__ import annotations
 
@@ -32,10 +37,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.plan import CNPlan, RelationRef
+from repro_torch.data.schema import PAD_ID
 from repro_torch.launch.mesh import VirtualMesh
 from repro_torch.obs import default_registry
 from repro_torch.obs import span as obs_span
-from repro_torch.runtime.batch import PlanSignature, RelationSig
+from repro_torch.runtime.batch import PlanSignature, RelationSig, bucket_pow2
 from repro_torch.runtime.cache import LruDict
 
 
@@ -68,10 +74,18 @@ class RelationStore:
         self._c_hits = self.metrics.counter("store.hits")
         self._c_evictions = self.metrics.counter("store.evictions")
         self._c_upload_bytes = self.metrics.counter("store.upload_bytes")
+        # chunked (append-path) entries assembled on the DEVICE from
+        # resident per-chunk columns: no host->device column traffic, so
+        # they count here instead of store.uploads/upload_bytes
+        self._c_assembles = self.metrics.counter("store.chunk_assembles")
         self._g_resident = self.metrics.gauge("store.resident_bytes")
         # bumped by clear(): an upload that started before an invalidation
         # must not re-insert pre-invalidation columns after it
         self.epoch = 0
+
+    @property
+    def chunk_assembles(self) -> int:
+        return self._c_assembles.value
 
     @property
     def resident_bytes(self) -> int:
@@ -82,7 +96,18 @@ class RelationStore:
     def columns(self, ref: RelationRef, rows_pad: int,
                 text_pad: int) -> StoredColumns:
         """The ref's device columns padded to (rows_pad, text_pad),
-        uploading them on first use (or after eviction)."""
+        uploading them on first use (or after eviction).
+
+        Refs spanning several append chunks (``ref.chunk_parts()``) are
+        assembled on the DEVICE from per-chunk entries instead of uploading
+        the whole column set: each part goes through this same method (a
+        part's uid equals the uid of a plain ref over the same rows, so
+        pre-append and delta-dispatch uploads alias), then the combined
+        entry concatenates the parts' rows and re-pads — bit-identical to
+        what a direct upload of the full ref would have produced.  Only the
+        parts missing from the store cost host->device traffic, which is
+        how an append re-ships one chunk, not the relation.
+        """
         key = (ref.uid, rows_pad, text_pad)
         with self._lock:
             cached = self._entries.hit(key)
@@ -90,29 +115,38 @@ class RelationStore:
                 self._c_hits.inc()
                 return cached
             epoch = self.epoch
-        if ref.chunk_parts() is not None:
-            raise NotImplementedError(
-                f"relation {ref.name!r} spans several append chunks; "
-                "chunked (incremental-ingest) store entries are not ported")
-        dev = self.mesh.device
-        with obs_span("store.upload", rows_pad=rows_pad,
-                      text_pad=text_pad) as sp:     # outside the lock
-            text, keys = ref.store_columns(rows_pad, text_pad)
-            nbytes = text.nbytes + keys.nbytes
-            sp.args["bytes"] = nbytes
-            stored = StoredColumns(text=torch.from_numpy(text).to(dev),
-                                   keys=torch.from_numpy(keys).to(dev),
-                                   nbytes=nbytes)
+        parts = ref.chunk_parts()
+        if parts is not None:
+            with obs_span("store.chunk_assemble", parts=len(parts),
+                          rows_pad=rows_pad, text_pad=text_pad):
+                part_cols = [self.columns(p, bucket_pow2(p.shard_rows),
+                                          text_pad) for p in parts]
+                stored = self._assemble(parts, part_cols, rows_pad, text_pad)
+        else:
+            dev = self.mesh.device
+            with obs_span("store.upload", rows_pad=rows_pad,
+                          text_pad=text_pad) as sp:     # outside the lock
+                text, keys = ref.store_columns(rows_pad, text_pad)
+                nbytes = text.nbytes + keys.nbytes
+                sp.args["bytes"] = nbytes
+                stored = StoredColumns(text=torch.from_numpy(text).to(dev),
+                                       keys=torch.from_numpy(keys).to(dev),
+                                       nbytes=nbytes)
         with self._lock:
             raced = self._entries.hit(key)
             if raced is not None:      # concurrent uploader won
                 self._c_hits.inc()
                 return raced
-            self._c_uploads.inc()
-            self._c_upload_bytes.inc(stored.nbytes)
+            if parts is not None:
+                self._c_assembles.inc()
+            else:
+                self._c_uploads.inc()
+                self._c_upload_bytes.inc(stored.nbytes)
             if self.epoch != epoch:
-                # a clear() (data invalidation) overtook this upload: serve
-                # this dispatch, cache nothing
+                # a clear() (data invalidation) overtook this upload: the
+                # columns may predate the mutation, and the row-index
+                # fingerprint cannot tell — serve this dispatch, cache
+                # nothing (the next reference re-reads the base arrays)
                 return stored
             resident = self._g_resident.add(stored.nbytes)
             self._entries.put(key, stored)
@@ -122,6 +156,49 @@ class RelationStore:
                     resident = self._g_resident.add(-dropped.nbytes)
                     self._c_evictions.inc()
             return stored
+
+    @staticmethod
+    def _assemble(parts: List[RelationRef], cols: List[StoredColumns],
+                  rows_pad: int, text_pad: int) -> StoredColumns:
+        """Combine per-chunk device columns into one padded entry.
+
+        Each part entry holds its rows contiguously sharded: worker w's
+        first ``ceil(n_part / P)`` slots are rows ``w*S .. (w+1)*S`` (flat
+        row order preserved, pad at the flat tail), so slicing off the pad,
+        flattening and concatenating the chunks recovers the combined row
+        order; re-sharding at the COMBINED shard size ``ceil(n_total / P)``
+        and re-padding each worker to ``rows_pad`` then reproduces EXACTLY
+        the tensor a direct ``ref.store_columns`` upload builds — all on
+        the device, no host columns and no wait on the device.
+        """
+        P = parts[0].n_devices
+        texts, keys = [], []
+        for p, c in zip(parts, cols):
+            S, n = p.shard_rows, p.n_rows
+            texts.append(c.text[:, :S].reshape(P * S, text_pad)[:n])
+            k = c.keys[:, :S]
+            keys.append(k.reshape((P * S,) + tuple(k.shape[2:]))[:n])
+        n_total = sum(p.n_rows for p in parts)
+        S_ref = -(-n_total // P)        # == the combined ref's shard_rows
+        text = torch.full((P * rows_pad, text_pad), PAD_ID,
+                          dtype=texts[0].dtype, device=texts[0].device)
+        keyc = torch.zeros((P * rows_pad,) + tuple(keys[0].shape[1:]),
+                           dtype=keys[0].dtype, device=keys[0].device)
+        # flat row r of the combined ref lands in worker r // S_ref, slot
+        # r % S_ref: each worker's block of S_ref rows starts at w*rows_pad
+        flat_text = torch.cat(texts)
+        flat_keys = torch.cat(keys)
+        for w in range(P):
+            lo, hi = w * S_ref, min((w + 1) * S_ref, n_total)
+            if hi > lo:
+                text[w * rows_pad:w * rows_pad + hi - lo] = flat_text[lo:hi]
+                keyc[w * rows_pad:w * rows_pad + hi - lo] = flat_keys[lo:hi]
+        text = text.view(P, rows_pad, text_pad)
+        keyc = keyc.view((P, rows_pad) + tuple(keys[0].shape[1:]))
+        return StoredColumns(
+            text=text, keys=keyc,
+            nbytes=text.numel() * text.element_size()
+            + keyc.numel() * keyc.element_size())
 
     # -- lifecycle / introspection ------------------------------------------
 
@@ -139,15 +216,17 @@ class RelationStore:
         return len(self._entries)
 
     def stats(self) -> Dict[str, int]:
-        uploads, hits, evictions, up_bytes, resident = self.metrics.values(
+        (uploads, hits, evictions, up_bytes, assembles,
+         resident) = self.metrics.values(
             self._c_uploads, self._c_hits, self._c_evictions,
-            self._c_upload_bytes, self._g_resident)
+            self._c_upload_bytes, self._c_assembles, self._g_resident)
         with self._lock:
             return {"store_entries": len(self._entries),
                     "store_uploads": uploads,
                     "store_hits": hits,
                     "store_evictions": evictions,
                     "store_upload_bytes": up_bytes,
+                    "store_chunk_assembles": assembles,
                     "store_bytes": resident}
 
 

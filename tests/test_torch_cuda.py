@@ -15,14 +15,26 @@ on the CPU, and the float32 kernel equals it bit for bit), and bit-equal
 from call to call; the model 1e-4 on logits of
 magnitude < 1 (float32; summation order only).
 
+The serving path on the card: the device top-k finalize over a 32 768-bin
+histogram of equal counts (the lowest ids first, at P = 1 and 8, equal to
+the CPU's answer: ``torch.topk`` promises no order among equal values, the
+port's stable sort does), the store's on-device ``_assemble`` bit-equal to
+a direct upload, ``submit`` from three threads with the launch and path
+counts exact, and a gateway burst that coalesces and then hits its cache,
+every answer equal to ``fct_star``.
+
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import numpy as np
 import pytest
 import torch
 
+import threading
+
 from _lru_kernel_order import kernel_order
 from repro_torch.api import FCTRequest, FCTSession, SessionConfig
+from repro_torch.core.accum import INT32_CHECKED
+from repro_torch.core.plan import RelationRef
 from repro_torch.core.star import fct_star, topk_terms
 from repro_torch.data.tpch import TpchConfig, generate, plant_keywords
 from repro_torch.configs.base import get_arch
@@ -32,7 +44,11 @@ from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.lru_scan import kernel as lru_kernel
 from repro_torch.kernels.lru_scan import ops as lru_ops
+from repro_torch.launch.mesh import make_worker_mesh
 from repro_torch.models import model as M
+from repro_torch.runtime import engine as fct_engine
+from repro_torch.runtime.store import RelationStore
+from repro_torch.serve import Gateway, GatewayConfig, SchemaRegistry
 
 pytestmark = pytest.mark.cuda
 
@@ -406,3 +422,127 @@ def test_reduced_model_forward_through_kernels(cuda_device):
     assert flash_ops.PATH_COUNTS["ref"] == lru_ops.PATH_COUNTS["ref"] == 0
     want = M.forward(params.to("cpu"), {"tokens": tok}, cfg)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
+# -- the FCT serving path on the card ------------------------------------------
+
+def _serving_schema():
+    cfg = TpchConfig(scale=1.0, fact_rows=3000, part_rows=200, supp_rows=20,
+                     order_rows=600, text_len=6, vocab_size=512, seed=3)
+    kws = [509, 510, 511]
+    return plant_keywords(generate(cfg), {
+        "PART": [kws[0]], "SUPPLIER": [kws[1]], "ORDERS": [kws[2]],
+        "LINEITEM": [kws[0], kws[2]]}, frac=0.3), kws
+
+
+@pytest.mark.parametrize("P", [1, 8])
+def test_device_topk_equal_counts_lowest_ids_first(cuda_device, P):
+    vocab, k = 32768, 10
+    tsig = fct_engine.topk_signature(vocab, P, INT32_CHECKED, k)
+    eng = fct_engine.FCTEngine()
+    excl = np.zeros(vocab, np.int8)
+    excl[[0, 5]] = 1
+    kw = fct_engine.keyword_ids_array([2, 7])
+    hist = np.full(vocab, 3, np.int32)
+    hist[[100, 20000, 30000]] = 4
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        mesh = make_worker_mesh(P, dev)
+        fn = fct_engine._build_topk_fn(tsig, mesh)
+        counts, ids, wrapped = fn(eng.vocab_device_vector(hist, mesh,
+                                                          np.int32), kw,
+                                  eng.vocab_device_vector(excl, mesh,
+                                                          np.int8))
+        out[dev.type] = (counts.cpu().numpy(), ids.cpu().numpy(),
+                         int(wrapped))
+    counts, ids, wrapped = out["cuda"]
+    k_eff = fct_engine.k_effective(tsig)
+    want = [100, 20000, 30000] + [i for i in range(1, vocab)
+                                  if i not in (5, 2, 7)][:k_eff - 3]
+    assert ids.tolist() == want and wrapped == 0
+    assert counts.tolist() == [4, 4, 4] + [3] * (k_eff - 3)
+    for a, b in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("P", [1, 8])
+def test_assemble_on_card_equals_a_direct_upload(cuda_device, P):
+    rng = np.random.default_rng(P)
+    chunks = (4000, 60, 700)
+    n = sum(chunks)
+    text = rng.integers(0, 500, (n, 12)).astype(np.int32)
+    keys = tuple(rng.integers(0, 99, n).astype(np.int32) for _ in range(3))
+    rows = np.sort(rng.choice(n, 3000, replace=False))
+    rows[-1] = n - 1
+    ref = RelationRef(role="fact", name="F", rows=rows, base_text=text,
+                      base_keys=keys, n_devices=P, base_chunks=chunks)
+    store = RelationStore(make_worker_mesh(P, cuda_device))
+    rows_pad = 1 << (ref.shard_rows - 1).bit_length()
+    got = store.columns(ref, rows_pad, 16)
+    want_text, want_keys = ref.store_columns(rows_pad, 16)
+    assert got.text.is_cuda and store.chunk_assembles == 1
+    np.testing.assert_array_equal(got.text.cpu().numpy(), want_text)
+    np.testing.assert_array_equal(got.keys.cpu().numpy(), want_keys)
+
+
+def test_submit_from_threads_counts_exactly(cuda_device):
+    schema, kws = _serving_schema()
+    session = FCTSession(schema, device=cuda_device)
+    req = FCTRequest(keywords=tuple(kws), top_k=10, r_max=4)
+    oracle = fct_star(schema, kws, 4)
+    kernel.LIB.reset_launches()
+    ops.reset_path_counts()
+    session.query(req)
+    per_query = ops.PATH_COUNTS["cuda_exact"]
+    assert per_query > 0
+    assert kernel.LAUNCHES["fct_count_exact_int32"] == per_query
+    kernel.LIB.reset_launches()
+    ops.reset_path_counts()
+    results, errors = [], []
+
+    def worker():
+        try:
+            futs = [session.submit(req) for _ in range(4)]
+            results.extend(f.result(timeout=300) for f in futs)
+        except BaseException as exc:          # pragma: no cover
+            errors.append(exc)
+
+    threads = [threading.Thread(target=worker) for _ in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    session.close()
+    assert not errors and len(results) == 12
+    for r in results:
+        np.testing.assert_array_equal(r.all_freqs, oracle)
+    assert ops.PATH_COUNTS["ref"] == 0
+    assert ops.PATH_COUNTS["cuda_exact"] == 12 * per_query
+    assert kernel.LAUNCHES["fct_count_exact_int32"] == 12 * per_query
+
+
+def test_gateway_burst_coalesces_on_card(cuda_device):
+    schema, kws = _serving_schema()
+    reg = SchemaRegistry(device=cuda_device, n_workers=2)
+    reg.register("t", schema)
+    reqs = [FCTRequest(keywords=tuple(k), top_k=10, r_max=4)
+            for k in (kws, kws, kws[:2], kws[:2], list(reversed(kws)))]
+    with Gateway(reg, GatewayConfig(batch_window_ms=20.0,
+                                    result_cache_ttl_s=3600.0)) as gw:
+        ops.reset_path_counts()
+        first = [f.result(timeout=300) for f in [gw.submit("t", r)
+                                                 for r in reqs]]
+        assert sum(r.coalesced for r in first) >= 2
+        assert ops.PATH_COUNTS["cuda_exact"] > 0 and \
+            ops.PATH_COUNTS["ref"] == 0
+        batches = reg.session("t").engine.batches_run
+        second = [gw.query("t", r) for r in reqs]
+        assert all(r.cache_hit for r in second)
+        assert reg.session("t").engine.batches_run == batches
+    for req, a, b in zip(reqs, first, second):
+        oracle = fct_star(schema, list(req.keywords), 4)
+        ids, f = topk_terms(oracle, list(req.keywords), 10)
+        for r in (a, b):
+            np.testing.assert_array_equal(r.all_freqs, oracle)
+            np.testing.assert_array_equal(r.term_ids, ids)
+            np.testing.assert_array_equal(r.freqs, f)

@@ -52,6 +52,8 @@ def test_every_module_imports_without_a_card():
     for kernel_module in ("fct_count", "flash_attention", "lru_scan"):
         assert f"repro_torch.kernels.{kernel_module}.kernel" in names
     assert "repro_torch.launch.serve" in names
+    assert "repro_torch.launch.fct_serve" in names
+    assert "repro_torch.serve.gateway" in names
     for name in names:
         importlib.import_module(name)
 
@@ -84,6 +86,17 @@ def test_lm_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA device requested"):
         serve.main(["--arch", "recurrentgemma-2b"])
     assert M.init_params(cfg, "cpu").device.type == "cpu"
+
+
+def test_fct_serve_refuses_without_a_card(capsys):
+    from repro_torch.launch import fct_serve
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the launcher would serve")
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        fct_serve.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        fct_serve.main(["--smoke", "--device", "cuda"])
+    assert "SMOKE OK" not in capsys.readouterr().out
 
 
 def test_fct_run_on_cpu(capsys):

@@ -147,3 +147,34 @@ def test_int32_overflow_raises_the_reference_error():
                        config=SessionConfig(accum_policy="int64"))
     resp = exact.query(FCTRequest(keywords=tuple(kws), r_max=4))
     np.testing.assert_array_equal(resp.all_freqs, fct_star(sj, kws, 4))
+
+
+@pytest.mark.parametrize("P", [1, 8])
+def test_run_plans_families_equal_the_reference(reference, P):
+    """``FCTEngine.run_plans`` (summed) and ``run_plans_individual`` (per
+    CN) over the same CN plans: bit for bit the reference engine's at
+    P = 1 (both are P-invariant)."""
+    from repro.launch.mesh import make_worker_mesh as jax_mesh
+    from repro.runtime.engine import FCTEngine as JaxEngine
+    from repro_torch.core import candidate_network as pt_cn
+    from repro_torch.core.plan import build_cn_plan
+    from repro_torch.launch.mesh import make_worker_mesh
+    from repro_torch.runtime.engine import FCTEngine
+    sj, kws, r_max, _ = reference["star"]
+    sp = schema_from_reference(sj)
+    tj, tp = jax_cn.TupleSets.build(sj, kws), pt_cn.TupleSets.build(sp, kws)
+    cj = jax_cn.prune_empty_cns(jax_cn.enumerate_star_cns(len(kws), sj.m,
+                                                          r_max), tj)
+    cp = pt_cn.prune_empty_cns(pt_cn.enumerate_star_cns(len(kws), sp.m,
+                                                        r_max), tp)
+    jplans = [p for p in (jax_build_cn_plan(sj, tj, cn, 1) for cn in cj)
+              if p is not None]
+    pplans = [p for p in (build_cn_plan(sp, tp, cn, P) for cn in cp)
+              if p is not None]
+    assert len(jplans) == len(pplans) > 1
+    jeng, peng, mesh = JaxEngine(), FCTEngine(), make_worker_mesh(P, "cpu")
+    np.testing.assert_array_equal(peng.run_plans(pplans, mesh),
+                                  jeng.run_plans(jplans, jax_mesh(1)))
+    np.testing.assert_array_equal(
+        peng.run_plans_individual(pplans, mesh),
+        jeng.run_plans_individual(jplans, jax_mesh(1)))
