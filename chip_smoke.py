@@ -38,7 +38,7 @@ Phases, one line each, then a kernels line and a last line with the device:
                 row counts only.
   5. profile    one more warm query under ``torch.profiler``: device time by
                 kernel, fct_count's share, the device's idle share (the
-                prefill of phase 9 is profiled the same way).
+                prefill of phase 10 is profiled the same way).
   6. fct_timing each fct_count instantiation at the main path's largest call
                 (its actual inputs): held against the plain version on those
                 inputs (bit-equal), then timed: kernel, plain version, one
@@ -83,7 +83,33 @@ Phases, one line each, then a kernels line and a last line with the device:
                 burst (``torch.profiler``, as phase 5).  The counts are set
                 to 0 just before the submit burst and read just after it
                 (``pipeline_submit_launches``).
-  9. lm_prefill recurrentgemma-2b (arXiv:2402.19427) at full width and
+  9. engine_paths  the engine's other paths on phase 4's deployment and
+                its full query's joined-CN plans (P 1, int32): the
+                host-stacked families (``FCTEngine().run_plans`` and
+                ``run_plans_individual`` with no store), bit-equal to
+                ``fct_star`` and to the store path's ``run_plans``, their
+                ``column_bytes_shipped`` equal to the bytes predicted from
+                the stacked shapes (the store path's: 0), wall times of
+                each; ``run_cn_plan_two_jobs`` on the largest joined
+                two-dimension CN, without and with a checkpoint in a
+                temporary directory (its size, save and restore times),
+                each bit-equal to that CN's ``run_plans_individual`` row;
+                one host-stacked int64 ``run_plans``.  Then P 8 on the same
+                generator at 0.05 of SF1's cardinalities (cut: every P 8
+                plan at SF1 costs tens of seconds of host planning): modes
+                uniform, skew, round_robin and adaptive (rho 4) by
+                ``query`` and ``query_batch`` through sessions on
+                ``FCTEngine()``, ``FCTEngine(reduce_scatter=False)`` and
+                ``FCTEngine(batch=False, bucket=False)``, each engine's
+                host-stacked ``run_plans`` too, device top-k under psum,
+                and ``run_fct_query`` equal to the session's answer; every
+                answer bit-equal to ``fct_star``.  Each path (``batched``,
+                ``batched_percn``, ``two_jobs``, ``two_jobs_ckpt``,
+                ``batched_int64``, ``p8_modes``) runs inside ``counted``:
+                its fct_count kernel launched, no plain-version call, and
+                its count goes into the kernels line as
+                ``<path>_launches``.
+ 10. lm_prefill recurrentgemma-2b (arXiv:2402.19427) at full width and
                 depth in bf16, random weights from ``--seed``: one prefill
                 ``forward`` of B 1 x S 8 192 tokens (cut from the dry-run's
                 prefill_32k, B 32 x S 32 768, whose float32 logits alone
@@ -92,15 +118,15 @@ Phases, one line each, then a kernels line and a last line with the device:
                 one lru_scan launch per rglru layer (18), no plain-version
                 call.  Keeps the first local layer's attention inputs and
                 the first rglru layer's scan inputs.
-  10. lm_decode  the same model in float32: ``forward`` of B 1 x S 2 304
+  11. lm_decode  the same model in float32: ``forward`` of B 1 x S 2 304
                 (flash, since S >= 1 024; past the 2 048 window, so the
                 decode ring buffer wraps) against token-by-token
                 ``decode_step``: max abs logit error below 5e-3, top-1 ids
                 equal wherever the forward's top-2 margin exceeds 1e-2.
-  11. lm_serve   ``python -m repro_torch.launch.serve --arch
+  12. lm_serve   ``python -m repro_torch.launch.serve --arch
                 recurrentgemma-2b --full --batch 4 --prompt-len 12
                 --gen-len 24``, in process: tokens/s.
- 12. lm_timing  flash_attention and lru_scan on the inputs kept in phase 9:
+ 13. lm_timing  flash_attention and lru_scan on the inputs kept in phase 10:
                 held against their plain versions there (flash in bf16 by
                 the one rounding both sides share: |kernel - plain| <=
                 2^-7 |plain| + 2^-8 mean|plain|; lru_scan within 1e-5 and
@@ -918,6 +944,214 @@ def run_pipeline(torch, np, session, full, oracle):
     return launches
 
 
+# --- phase 9: the engine's other paths --------------------------------------
+
+P8_SCALE = 0.05     # of SF1's cardinalities: every P = 8 plan at SF1 costs
+P8_MODES = ("uniform", "skew", "round_robin", "adaptive")  # tens of seconds
+P8_ENGINES = {"rs": {}, "psum": {"reduce_scatter": False},
+              "unbatched": {"batch": False, "bucket": False}}
+
+
+def predicted_column_bytes(engine, plans, individual):
+    """The text and key bytes the host-stacked families ship for ``plans``,
+    from the stacked shapes alone: per group, N (rounded up to the null-CN
+    padding of the per-CN family) x P x rows x (text_len + key columns) x 4
+    bytes (int32) per relation."""
+    from repro_torch.runtime.engine import CN_BUCKET_MIN
+    total = 0
+    for sig, idxs in engine._group(plans):
+        n = len(idxs)
+        if individual and engine.bucket:
+            n = -(-n // CN_BUCKET_MIN) * CN_BUCKET_MIN
+        per_cn = sig.fact.rows * (sig.fact.text_len + sig.m) + sum(
+            d.rows * (d.text_len + 1) for d in sig.dims)
+        total += n * sig.n_devices * per_cn * 4
+    return total
+
+
+def timed(torch, dev, fn, trace=None):
+    """(fn's result, wall ms up to a synchronize); ``fn`` runs with
+    ``trace`` active when one is given."""
+    from repro_torch.obs import maybe_activate
+    t0 = time.perf_counter()
+    with maybe_activate(trace):
+        out = fn()
+    torch.cuda.synchronize(dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def span_ms(trace):
+    """Total ms of the trace's spans, by name."""
+    out = {}
+    for sp in trace.spans():
+        out[sp.name] = out.get(sp.name, 0.0) + sp.dur_ns / 1e6
+    return out
+
+
+def run_engine_paths(torch, np, args, dev, session, full, oracle):
+    """Phase 9; returns the launches of each path, each counted from 0
+    around that path alone."""
+    import tempfile
+    import warnings
+    from repro_torch.api import FCTRequest, FCTSession, SessionConfig
+    from repro_torch.core.accum import INT64_EXACT
+    from repro_torch.core.fct import run_cn_plan_two_jobs, run_fct_query
+    from repro_torch.core.star import fct_star
+    from repro_torch.data.schema import PAD_ID
+    from repro_torch.obs import Trace
+    from repro_torch.runtime.cache import ExecutableCache
+    from repro_torch.runtime.engine import FCTEngine
+
+    kws = list(full.keywords)
+    planned = session._plan(full)             # phase 4's, from the cache
+    plans, mesh = planned.plans, session.mesh
+    launches = {}
+
+    def with_map_only(freq):   # the joined CNs plus the map-only CNs
+        out = planned.host_freq + freq
+        out[PAD_ID] = 0
+        return out
+
+    before = session.engine.stats()
+    store, store_ms = timed(torch, dev, lambda: session.engine.run_plans(
+        plans, mesh, store=session.store))
+    after = session.engine.stats()
+    check(np.array_equal(with_map_only(store), oracle),
+          "store-path run_plans differs from fct_star")
+    store_bytes = after["bytes_shipped"] - before["bytes_shipped"]
+    store_cols = after["column_bytes_shipped"] - before["column_bytes_shipped"]
+    check(store_cols == 0, f"the store path shipped {store_cols} column bytes")
+
+    cache = ExecutableCache()
+    lines = []
+    for label, individual in (("batched", False), ("batched_percn", True)):
+        eng = FCTEngine(cache=cache)
+        predicted = predicted_column_bytes(eng, plans, individual)
+        print(f"[engine_paths] {label}: predicted column_bytes_shipped "
+              f"{predicted} for {len(plans)} CNs in "
+              f"{len(eng._group(plans))} groups", flush=True)
+        run = eng.run_plans_individual if individual else eng.run_plans
+        trace = Trace()
+        (out, ms), launches[label] = counted(
+            f"host-stacked {label}",
+            lambda: timed(torch, dev, lambda: run(plans, mesh), trace))
+        spans = span_ms(trace)
+        if individual:
+            per_cn, out = out, out.sum(axis=0)
+        check(np.array_equal(out, store),
+              f"host-stacked {label} differs from the store path")
+        check(np.array_equal(with_map_only(out), oracle),
+              f"host-stacked {label} differs from fct_star")
+        st = eng.stats()
+        check(st["column_bytes_shipped"] == predicted,
+              f"{label}: shipped {st['column_bytes_shipped']} column bytes, "
+              f"predicted {predicted}")
+        lines.append(f"{label} {ms:.3f} ms (host stacking "
+                     f"{spans['engine.host_stack']:.3f} ms of the groups' "
+                     f"dispatch {spans['engine.dispatch_group']:.3f} ms), "
+                     f"column_bytes_shipped {st['column_bytes_shipped']} "
+                     f"(predicted {predicted}), bytes_shipped "
+                     f"{st['bytes_shipped']}, groups {st['batches_run']}")
+    lines.append(f"store path {store_ms:.3f} ms, column_bytes_shipped "
+                 f"{store_cols}, bytes_shipped {store_bytes}")
+    print(f"[engine_paths] P 1 SF1 x {args.scale}: " + "; ".join(lines),
+          flush=True)
+
+    # the split two-job path on the largest joined two-dimension CN
+    big = max((i for i, p in enumerate(plans) if len(p.included) == 2),
+              key=lambda i: plans[i].fact.ref.n_rows)
+    (two, ms), launches["two_jobs"] = counted("two jobs", lambda: timed(
+        torch, dev, lambda: run_cn_plan_two_jobs(plans[big], mesh,
+                                                 cache=cache)))
+    check(np.array_equal(two, per_cn[big]),
+          "two-job path differs from the CN's run_plans_individual row")
+    trace = Trace()
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        (two_ck, ck_ms), launches["two_jobs_ckpt"] = counted(
+            "two jobs with a checkpoint", lambda: timed(
+                torch, dev, lambda: run_cn_plan_two_jobs(
+                    plans[big], mesh, checkpoint_dir=ckpt_dir, cache=cache),
+                trace))
+        size = sum(f.stat().st_size for f in Path(ckpt_dir).rglob("*")
+                   if f.is_file())
+    check(np.array_equal(two_ck, per_cn[big]),
+          "two-job path with a checkpoint differs from the fused path")
+    spans = span_ms(trace)
+    print(f"[engine_paths] two jobs on CN {big} ({plans[big].fact.ref.n_rows} "
+          f"fact rows, {len(plans[big].included)} dimensions): {ms:.3f} ms; "
+          f"with a checkpoint {ck_ms:.3f} ms, checkpoint {size} bytes, save "
+          f"{spans['fct.checkpoint_save']:.3f} ms, restore "
+          f"{spans['fct.checkpoint_restore']:.3f} ms", flush=True)
+
+    eng64 = FCTEngine(cache=cache)
+    (t64, ms), launches["batched_int64"] = counted(
+        "host-stacked int64", lambda: timed(torch, dev, lambda: eng64.run_plans(
+            plans, mesh, accum=INT64_EXACT)),
+        kernels=("fct_count_exact_int64",))
+    check(np.array_equal(with_map_only(t64), oracle),
+          "host-stacked int64 run_plans differs from fct_star")
+    print(f"[engine_paths] host-stacked int64 {ms:.3f} ms, column_bytes_"
+          f"shipped {eng64.column_bytes_shipped}", flush=True)
+
+    # P = 8 at a cut scale: every mode, both aggregation layouts, unbatched
+    t0 = time.perf_counter()
+    schema8, kws8 = build_schema(np, argparse.Namespace(
+        scale=args.scale * P8_SCALE, seed=args.seed))
+    oracle8 = fct_star(schema8, kws8, 4)
+    reqs = [FCTRequest(keywords=tuple(kws8), top_k=10, r_max=4, mode=m,
+                       rho=4) for m in P8_MODES]
+    print(f"[engine_paths] P 8 deployment SF1 x {args.scale * P8_SCALE}: "
+          f"LINEITEM {schema8.fact.rows} rows; generated and fct_star in "
+          f"{time.perf_counter() - t0:.3f}s", flush=True)
+    p8_lines = []
+
+    def p8():
+        answers = {}
+        for label, options in P8_ENGINES.items():
+            eng = FCTEngine(cache=ExecutableCache(), **options)
+            s = FCTSession(schema8, device=dev, n_workers=8, engine=eng)
+            t1 = time.perf_counter()
+            resps = [s.query(r) for r in reqs] + s.query_batch(reqs)
+            for r, resp in zip(reqs + reqs, resps):
+                check_answer(np, resp, oracle8, kws8, 10,
+                             f"P 8 {label} {r.mode}")
+            answers[label] = resps[0]
+            p0 = s._plan(reqs[0])
+            host = eng.run_plans(p0.plans, s.mesh)
+            host = p0.host_freq + host
+            host[PAD_ID] = 0
+            check(np.array_equal(host, oracle8),
+                  f"P 8 {label} host-stacked run_plans differs from fct_star")
+            p8_lines.append(f"{label} {(time.perf_counter() - t1) * 1e3:.3f}"
+                            f" ms, batches {eng.stats()['batches_run']}")
+        s = FCTSession(schema8, device=dev, n_workers=8,
+                       engine=FCTEngine(cache=ExecutableCache(),
+                                        reduce_scatter=False),
+                       config=SessionConfig(device_topk=True))
+        resp = s.query(reqs[0])
+        check(resp.finalize == "device_topk", "P 8 psum top-k not on device")
+        check_topk(np, resp, oracle8, kws8, 10, "P 8 psum device top-k")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            res = run_fct_query(schema8, kws8, r_max=4, k_terms=10,
+                                device=dev, n_workers=8)
+        want = answers["rs"]
+        for field in ("term_ids", "freqs", "all_freqs"):
+            check(np.array_equal(getattr(res, field), getattr(want, field)),
+                  f"run_fct_query {field} differs from the session's")
+        for field in ("n_cns", "n_joined_cns", "shuffle_rows",
+                      "shuffle_bytes", "imbalance"):
+            check(getattr(res, field) == getattr(want, field),
+                  f"run_fct_query {field} differs from the session's")
+
+    _, launches["p8_modes"] = counted("P 8 modes", p8)
+    print(f"[engine_paths] P 8, modes {list(P8_MODES)} by query and "
+          f"query_batch, each bit-equal to fct_star: "
+          + "; ".join(p8_lines) + "; psum device top-k and run_fct_query "
+          "equal", flush=True)
+    return launches
+
+
 # --- LM phases: recurrentgemma-2b prefill, decode and serve ------------------
 
 LM_ARCH = "recurrentgemma-2b"
@@ -1562,12 +1796,25 @@ def main() -> int:
     t0 = time.perf_counter()
     path_launches["pipeline_submit"] = run_pipeline(
         torch, np, session, req, oracles[req.keywords])
-    del session, schema, oracles
-    torch.cuda.empty_cache()
     phase("pipeline", t0, "8 submits resolved in order, every answer "
                           "bit-equal to the oracle; the burst alone launched "
                           f"{path_launches['pipeline_submit']}, 0 "
                           "plain-version calls")
+
+    t0 = time.perf_counter()
+    engine_launches = run_engine_paths(torch, np, args, dev, session, req,
+                                       oracles[req.keywords])
+    path_launches.update(engine_launches)
+    del session, schema, oracles
+    torch.cuda.empty_cache()
+    phase("engine_paths", t0, "host-stacked run_plans and "
+                              "run_plans_individual, the two-job path with "
+                              "and without a checkpoint, host-stacked int64, "
+                              "and every mode at P 8 under reduce-scatter, "
+                              "psum and unbatched, every answer bit-equal to "
+                              "fct_star; fct_count launched and no "
+                              "plain-version call in each path, counted from "
+                              f"0 around it: {engine_launches}")
     # each serving path's launches of each fct_count kernel, under its name
     for entry in report:
         entry.update({f"{path}_launches": n.get(entry["name"], 0)

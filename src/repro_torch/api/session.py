@@ -61,9 +61,9 @@ from repro_torch.runtime.store import RelationStore
 
 _ENGINE_COUNTERS = ("hits", "misses", "traces", "evictions",
                     "batches_run", "cns_run", "bytes_shipped",
-                    "store_uploads", "store_hits", "store_upload_bytes",
-                    "store_chunk_assembles", "device_to_host_bytes",
-                    "groups_pruned", "pruned_rows")
+                    "column_bytes_shipped", "store_uploads", "store_hits",
+                    "store_upload_bytes", "store_chunk_assembles",
+                    "device_to_host_bytes", "groups_pruned", "pruned_rows")
 
 
 def _cn_includes(cn: StarCN, role: str, dim_index: int) -> bool:

@@ -27,9 +27,16 @@ Index semantics follow the reference explicitly, since torch index ops raise
 where JAX's clamp or drop: gathers wrap a negative index once and then clamp
 (:func:`_clamp_index`); scatter-adds wrap once and drop what is still out of
 range (:func:`_scatter_add_drop`).  On the main path every index is in range.
+
+The two jobs are also separable (:func:`run_cn_plan_two_jobs`): job 1
+returns the vol-array artifact that job 2 consumes, so the MR¹→MR² boundary
+can be checkpointed — the paper's "two MapReduce jobs" as two programs.  The
+fused path is the default.
 """
 from __future__ import annotations
 
+import dataclasses
+import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -37,8 +44,15 @@ import torch
 
 from repro_torch.core.accum import INT32_CHECKED, AccumPolicy
 from repro_torch.core.plan import CNPlan
+from repro_torch.data.schema import StarSchema
+from repro_torch.distributed.checkpoint import (restore_checkpoint,
+                                                save_checkpoint)
 from repro_torch.kernels.fct_count.ops import weighted_histogram
 from repro_torch.launch.mesh import VirtualMesh
+from repro_torch.obs import span as obs_span
+from repro_torch.runtime.batch import (PlanSignature, pad_plan_arrays,
+                                       plan_signature)
+from repro_torch.runtime.cache import ExecutableCache, default_cache
 
 
 def _clamp_index(idx: torch.Tensor, size: int) -> torch.Tensor:
@@ -190,3 +204,151 @@ def run_cn_plan(plan: CNPlan, mesh: VirtualMesh,
         fact, dims, domains=tuple(plan.key_domains[i] for i in plan.included),
         vocab=plan.vocab_size, accum=accum)
     return hist[0].to(accum.dtype).cpu().numpy().astype(np.int64)
+
+
+# ---------------------------------------------------------------------------
+# split two-job execution (the paper's MR1 / MR2 boundary, checkpointable)
+# ---------------------------------------------------------------------------
+
+def _device_job1(fact: Dict, dims: Sequence[Dict], *,
+                 domains: Tuple[int, ...], accum: AccumPolicy) -> Dict:
+    """MR¹ only, for one CN: route + num-arrays + volumes.  Returns the
+    vol-array artifact ``{"fact": {"text", "vol"}, "dims": [{"text",
+    "vol"}, ...]}`` — the paper's reducer output that MapReduce 2nd
+    consumes.  Each routed ``[1, P(dst), P*C, ...]`` buffer is viewed in the
+    reference's global layout ``[P*P*C, ...]``, destination-major: the
+    concatenation of the workers' shards."""
+    routed_fact, routed_dims = _route_cn(fact, dims)
+    vol_fact, dim_vols = _mr1_volumes(routed_fact, routed_dims, domains,
+                                      accum)
+
+    def flat(text, vol):
+        return {"text": text.reshape((-1,) + tuple(text.shape[3:])),
+                "vol": vol.reshape(-1)}
+
+    return {"fact": flat(routed_fact[0], vol_fact),
+            "dims": [flat(dtext, w)
+                     for (dtext, _, _), w in zip(routed_dims, dim_vols)]}
+
+
+def _device_job2(vol_arrays: Dict, *, vocab: int,
+                 accum: AccumPolicy) -> torch.Tensor:
+    """MR² only: one weighted histogram per relation of the vol-arrays,
+    summed over workers (the rows of every worker are in one axis) ->
+    ``[vocab]`` in the policy dtype."""
+    fact = vol_arrays["fact"]
+    hist = weighted_histogram(fact["text"], fact["vol"], vocab)
+    for d in vol_arrays["dims"]:
+        hist = hist + weighted_histogram(d["text"], d["vol"].to(hist.dtype),
+                                         vocab)
+    return hist.to(accum.dtype)
+
+
+def _build_job1(sig: PlanSignature, mesh: VirtualMesh):
+    """Job 1's program: uploads one plan's padded host arrays
+    (``pad_plan_arrays``) as a batch of one CN and runs MR¹."""
+    device = mesh.device
+    domains = tuple(d.domain for d in sig.dims)
+
+    def upload(rel):
+        return {"text": [torch.from_numpy(rel["text"]).to(device)],
+                "keys": [torch.from_numpy(rel["keys"]).to(device)],
+                "send": torch.from_numpy(rel["send"]).to(device)[None]}
+
+    def program(fact, dims):
+        with torch.profiler.record_function("fct.job1"):
+            return _device_job1(upload(fact), [upload(d) for d in dims],
+                                domains=domains, accum=sig.accum)
+
+    return program
+
+
+def _build_job2(sig: PlanSignature):
+    def program(vol_arrays):
+        with torch.profiler.record_function("fct.job2"):
+            return _device_job2(vol_arrays, vocab=sig.vocab, accum=sig.accum)
+
+    return program
+
+
+def run_cn_plan_two_jobs(plan: CNPlan, mesh: VirtualMesh,
+                         checkpoint_dir: Optional[str] = None,
+                         cache: Optional[ExecutableCache] = None,
+                         accum: AccumPolicy = INT32_CHECKED) -> np.ndarray:
+    """MR¹ -> (optional host checkpoint) -> MR², bit-equal to the fused
+    path -> freq[vocab] int64 (no wrap check, as in :func:`run_cn_plan`).
+
+    Both jobs' programs live in the runtime's program cache, keyed by the
+    plan's bucketed signature (``("fct_job1", sig, mesh)`` and
+    ``("fct_job2", sig, mesh)``), so repeated shapes build nothing.  With
+    ``checkpoint_dir`` the vol-array artifact is saved there as step 1 (the
+    boundary the paper spills to the DFS) and job 2 runs on what is
+    restored from it (spans ``fct.checkpoint_save`` / ``_restore``)."""
+    if mesh.n_workers != plan.n_devices:
+        raise ValueError(f"plan built for {plan.n_devices} workers, mesh has "
+                         f"{mesh.n_workers}")
+    if cache is None:
+        cache = default_cache()
+    sig = plan_signature(plan, accum=accum)
+    fact, dims = pad_plan_arrays(plan, sig)
+    job1 = cache.get_or_build(("fct_job1", sig, mesh),
+                              lambda: _build_job1(sig, mesh))
+    vol_arrays = job1(fact, dims)
+    if checkpoint_dir is not None:
+        with obs_span("fct.checkpoint_save"):
+            save_checkpoint(checkpoint_dir, 1, vol_arrays)
+        with obs_span("fct.checkpoint_restore"):
+            _, vol_arrays = restore_checkpoint(checkpoint_dir, vol_arrays)
+    job2 = cache.get_or_build(("fct_job2", sig, mesh),
+                              lambda: _build_job2(sig))
+    return job2(vol_arrays).cpu().numpy().astype(np.int64)
+
+
+# ---------------------------------------------------------------------------
+# query runner (deprecated shim — the service API lives in repro_torch/api)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class FCTResult:
+    term_ids: np.ndarray
+    freqs: np.ndarray
+    all_freqs: np.ndarray
+    n_cns: int
+    n_joined_cns: int
+    shuffle_rows: int
+    shuffle_bytes: int
+    imbalance: float
+
+
+def run_fct_query(schema: StarSchema, keywords: Sequence[int], *,
+                  r_max: int = 4, k_terms: int = 10,
+                  mode: str = "uniform", rho: int = 4,
+                  sample_frac: float = 1.0, salt: int = 0,
+                  device=None, n_workers: int = 1,
+                  stop_mask: Optional[np.ndarray] = None,
+                  engine=None) -> FCTResult:
+    """End-to-end FCT query (Def. 6) on ``n_workers`` virtual workers on
+    ``device`` (``None`` = CUDA).
+
+    .. deprecated::
+        Thin shim over :class:`repro_torch.api.FCTSession` — each call
+        builds a throwaway session, so tuple sets are re-derived every time.
+        Callers issuing more than one query should hold an ``FCTSession``
+        (which also offers ``query_batch`` and pipelined ``submit``).
+    """
+    from repro_torch.api import FCTRequest, FCTSession
+    warnings.warn(
+        "run_fct_query is deprecated; use repro_torch.api.FCTSession "
+        "(query/query_batch/submit)", DeprecationWarning, stacklevel=2)
+    with FCTSession(schema, device=device, n_workers=n_workers,
+                    engine=engine, stop_mask=stop_mask) as session:
+        resp = session.query(FCTRequest(
+            keywords=tuple(int(k) for k in keywords), top_k=k_terms,
+            r_max=r_max, mode=mode, rho=rho, sample_frac=sample_frac,
+            salt=salt))
+    return FCTResult(term_ids=resp.term_ids, freqs=resp.freqs,
+                     all_freqs=resp.all_freqs, n_cns=resp.n_cns,
+                     n_joined_cns=resp.n_joined_cns,
+                     shuffle_rows=resp.shuffle_rows,
+                     shuffle_bytes=resp.shuffle_bytes,
+                     imbalance=resp.imbalance)

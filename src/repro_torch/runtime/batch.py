@@ -7,12 +7,19 @@ power of two (``BUCKET_MIN`` floor), so the infinite family of exact shapes
 collapses onto a small lattice of *signatures* — the unit of program caching
 and of multi-CN batching.  The pow-2 padding also fixes the shapes (and hence
 ``shuffle_bytes``-level accounting) to the reference engine's.
+``bucket=False`` keeps the exact dims (the equivalence baseline).
 
 Padding is semantics-free by construction:
   * extra ``S`` rows are never named by any send-table entry,
   * extra ``C`` slots hold -1, which the device program masks out,
   * extra ``L`` columns hold PAD_ID, which the histogram never counts,
   * a larger key ``domain`` only grows the num-arrays' zero tail.
+
+``stack_group`` stacks same-signature plans' host arrays along a leading CN
+axis ``[N, P, ...]`` for the engine's host-stacked families
+(``fct_batched``, ``fct_batched_percn``); ``pad_cn_axis`` pads that axis
+with null plans.  These stay host numpy, in the reference's dtypes, so the
+shipped byte counts equal the reference's.
 
 Beside the shape lattice, a signature carries the query's
 :class:`~repro_torch.core.accum.AccumPolicy` — the device accumulation width
@@ -25,8 +32,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
+
 from repro_torch.core.accum import INT32_CHECKED, AccumPolicy
 from repro_torch.core.plan import CNPlan, RelationRoute
+from repro_torch.data.schema import PAD_ID
 
 BUCKET_MIN = 8
 
@@ -82,36 +92,98 @@ class PlanSignature:
         return len(self.dims)
 
 
-def _route_sig(route: RelationRoute, domain: int,
+def _route_sig(route: RelationRoute, domain: int, bucket: bool,
                key_width: int = 0) -> RelationSig:
     # descriptor metadata only — computing a signature must not materialize
     # the (lazy) column arrays
-    return RelationSig(rows=bucket_pow2(route.ref.shard_rows),
-                       cap=bucket_pow2(route.send.shape[-1]),
-                       text_len=bucket_pow2(route.ref.text_len),
-                       domain=bucket_pow2(domain) if domain else 0,
+    S, L = route.ref.shard_rows, route.ref.text_len
+    C = route.send.shape[-1]
+    if bucket:
+        S, C, L = bucket_pow2(S), bucket_pow2(C), bucket_pow2(L)
+        domain = bucket_pow2(domain) if domain else 0
+    return RelationSig(rows=S, cap=C, text_len=L, domain=domain,
                        key_width=key_width)
 
 
-def plan_signature(plan: CNPlan,
+def plan_signature(plan: CNPlan, bucket: bool = True,
                    accum: Optional[AccumPolicy] = None) -> PlanSignature:
     """``accum=None`` means int32-checked, the default policy; sessions
     pass their resolved policy."""
     if accum is None:
         accum = INT32_CHECKED
-    dims = tuple(_route_sig(plan.dims[i], plan.key_domains[i])
+    dims = tuple(_route_sig(plan.dims[i], plan.key_domains[i], bucket)
                  for i in plan.included)
-    fact = _route_sig(plan.fact, 0, key_width=plan.fact.ref.key_width)
+    fact = _route_sig(plan.fact, 0, bucket,
+                      key_width=plan.fact.ref.key_width)
     return PlanSignature(n_devices=plan.n_devices, vocab=plan.vocab_size,
                          fact=fact, dims=dims, accum=accum)
 
 
-def group_plan_indices(plans: Sequence[CNPlan],
+def _pad_route(route: RelationRoute, sig: RelationSig) -> Dict[str, np.ndarray]:
+    rtext, rkeys = route.text, route.keys   # materialize the lazy columns once
+    P, S, L = rtext.shape
+    text = np.pad(rtext, ((0, 0), (0, sig.rows - S), (0, sig.text_len - L)),
+                  constant_values=PAD_ID)
+    key_pad = ((0, 0), (0, sig.rows - S)) + ((0, 0),) * (rkeys.ndim - 2)
+    keys = np.pad(rkeys, key_pad, constant_values=0)
+    send = np.pad(route.send,
+                  ((0, 0), (0, 0), (0, sig.cap - route.send.shape[-1])),
+                  constant_values=-1)
+    return {"text": text, "keys": keys, "send": send}
+
+
+def pad_plan_arrays(plan: CNPlan, sig: PlanSignature):
+    """(fact, [dims]) numpy dicts padded to ``sig``: text ``[P, rows,
+    text_len]``, keys ``[P, rows]`` (dim) or ``[P, rows, m]`` (fact, the
+    CN's own columns), send ``[P, P, cap]``."""
+    fact = _pad_route(plan.fact, sig.fact)
+    dims = [_pad_route(plan.dims[i], rsig)
+            for i, rsig in zip(plan.included, sig.dims)]
+    return fact, dims
+
+
+def group_plan_indices(plans: Sequence[CNPlan], bucket: bool = True,
                        accum: Optional[AccumPolicy] = None
                        ) -> List[Tuple[PlanSignature, List[int]]]:
     """Group plan *indices* by signature (insertion order preserved): one
     batched device program per group."""
     groups: Dict[PlanSignature, List[int]] = {}
     for i, plan in enumerate(plans):
-        groups.setdefault(plan_signature(plan, accum), []).append(i)
+        groups.setdefault(plan_signature(plan, bucket, accum), []).append(i)
     return list(groups.items())
+
+
+def group_plans(plans: Sequence[CNPlan], bucket: bool = True,
+                accum: Optional[AccumPolicy] = None
+                ) -> List[Tuple[PlanSignature, List[CNPlan]]]:
+    """As ``group_plan_indices``, materialized to the plans themselves."""
+    return [(sig, [plans[i] for i in idxs])
+            for sig, idxs in group_plan_indices(plans, bucket, accum)]
+
+
+def stack_group(plans: Sequence[CNPlan], sig: PlanSignature):
+    """Stack same-signature plans along a leading CN axis: every leaf goes
+    [P, ...] -> [N, P, ...]."""
+    padded = [pad_plan_arrays(p, sig) for p in plans]
+    fact = {k: np.stack([f[k] for f, _ in padded])
+            for k in ("text", "keys", "send")}
+    dims = [{k: np.stack([d[j][k] for _, d in padded])
+             for k in ("text", "keys", "send")} for j in range(sig.m)]
+    return fact, dims
+
+
+def pad_cn_axis(fact, dims, n_stack: int):
+    """Pad the leading CN axis of a stacked group to ``n_stack`` with null
+    plans: an all ``-1`` send table routes nothing, so a padded CN's masks,
+    num-arrays, volumes and histogram are exactly zero (same invariants as
+    the per-dim padding above)."""
+    def pad(rel):
+        n = rel["text"].shape[0]
+        if n == n_stack:
+            return rel
+        fills = {"text": PAD_ID, "keys": 0, "send": -1}
+        return {k: np.concatenate(
+                    [v, np.full((n_stack - n,) + v.shape[1:], fills[k],
+                                v.dtype)])
+                for k, v in rel.items()}
+    return pad(fact), [pad(d) for d in dims]

@@ -7,24 +7,29 @@ planning:
   2. group same-signature CNs along a leading CN axis,
   3. run ONE device program per group — the MR¹+MR² body over the CN axis
      (core/fct.py), the ``[N, vocab]`` histograms summed on device, and
-     cross-worker aggregation in the reference's layout: a sum over the
-     worker axis, padded to a multiple of P on multi-worker meshes (the
-     reduce-scatter layout, ``vocab_padded``) so collection slices exactly
-     as the reference's does — so a query costs one program run and one
-     device->host transfer per signature, not per CN,
+     cross-worker aggregation in one of the reference's two layouts: a sum
+     over the worker axis (psum), or that sum padded to a multiple of P on
+     multi-worker meshes (the reduce-scatter layout, ``vocab_padded``), so
+     collection slices exactly as the reference's does — so a query costs
+     one program run and one device->host transfer per signature, not per
+     CN,
   4. memoize the built programs in an ExecutableCache keyed by
-     (family, signature, N, mesh), so warm queries
-     build nothing,
-  5. gather the tuple-set ``text``/``keys`` columns from the session's
-     DEVICE-RESIDENT RelationStore (store.py): a dispatch ships only the
-     stacked send tables plus the fact key-column indices.
+     (family, signature, N, mesh, aggregation), so warm queries build
+     nothing,
+  5. with a session's RelationStore (store.py), gather the tuple-set
+     ``text``/``keys`` columns from DEVICE-RESIDENT tensors: a dispatch
+     ships only the stacked send tables plus the fact key-column indices.
+     Without one, the host pads and stacks the columns and ships them with
+     every dispatch (the reference's pre-store engine, kept as the
+     equivalence baseline and for storeless callers).
 
-Two program families share one body (``_vmapped_cns``): ``fct_store`` sums
-the CN axis (single-query ``query``) and ``fct_store_percn`` keeps it, with
-the CN axis rounded up to a multiple of ``CN_BUCKET_MIN`` by null CNs, so CNs
-of different queries can share one dispatch (``query_batch``).
+Four program families share one body (``_vmapped_cns``): ``fct_store`` and
+``fct_batched`` (host-stacked) sum the CN axis (single-query ``query``);
+``fct_store_percn`` and ``fct_batched_percn`` keep it, with the CN axis
+rounded up to a multiple of ``CN_BUCKET_MIN`` by null CNs when bucketing, so
+CNs of different queries can share one dispatch (``query_batch``).
 
-A third family, ``fct_topk``, finalizes on the device: the aggregated
+A fifth family, ``fct_topk``, finalizes on the device: the aggregated
 histogram stays device-resident and only O(k) candidates (counts, term ids,
 a wrap flag) reach the host (``dispatch_topk`` / ``collect_topk``).
 
@@ -41,19 +46,21 @@ in int64.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.accum import INT32_CHECKED, AccumPolicy
+from repro_torch.core.accum import AccumPolicy
 from repro_torch.core.fct import _device_fct_local
 from repro_torch.core.plan import CNPlan
 from repro_torch.launch.mesh import VirtualMesh
 from repro_torch.obs import default_registry
 from repro_torch.obs import span as obs_span
 from repro_torch.runtime.batch import (BUCKET_MIN, PlanSignature, RelationSig,
-                                       bucket_pow2, group_plan_indices)
+                                       bucket_pow2, group_plan_indices,
+                                       pad_cn_axis, plan_signature,
+                                       stack_group)
 from repro_torch.runtime.cache import ExecutableCache, default_cache
 from repro_torch.runtime.store import RelationStore, store_group_args
 
@@ -76,9 +83,9 @@ def vocab_padded(vocab: int, n_devices: int) -> int:
     return -(-vocab // n_devices) * n_devices
 
 
-def _vmapped_cns(fact, dims, sig: PlanSignature,
-                 reduce_cns: bool) -> torch.Tensor:
-    """Body shared by both program families: MR¹+MR² over the leading CN
+def _vmapped_cns(fact, dims, sig: PlanSignature, reduce_cns: bool,
+                 reduce_scatter: bool) -> torch.Tensor:
+    """Body shared by every histogram family: MR¹+MR² over the leading CN
     axis, then the cross-worker aggregation.
 
     The histograms come back already summed over the virtual mesh's worker
@@ -86,23 +93,55 @@ def _vmapped_cns(fact, dims, sig: PlanSignature,
     cross-CN group sum accumulates in the signature's AccumPolicy dtype —
     explicitly, so individually-fine int32 CNs summing past 2^31 wrap (and
     are caught on collection) under INT32_CHECKED and stay exact under
-    INT64_EXACT.  The vocab axis is padded to a multiple of P, the layout
-    of the reference's ``psum_scatter`` output gathered to the host (no pad
-    on one worker, the reference's psum layout)."""
+    INT64_EXACT.  Under ``reduce_scatter`` the vocab axis is padded to a
+    multiple of P, the layout of the reference's ``psum_scatter`` output
+    gathered to the host; otherwise it is the reference's psum layout, the
+    whole vocab.  Integer addition is associative, so both give
+    bit-identical totals."""
     hists = _device_fct_local(fact, dims,
                               domains=tuple(d.domain for d in sig.dims),
                               vocab=sig.vocab,
                               accum=sig.accum)                 # [N, vocab]
     acc = sig.accum.dtype
-    pad = vocab_padded(sig.vocab, sig.n_devices) - sig.vocab
     out = hists.sum(dim=0, dtype=acc) if reduce_cns else hists.to(acc)
-    if pad:
+    pad = vocab_padded(sig.vocab, sig.n_devices) - sig.vocab
+    if reduce_scatter and pad:
         out = torch.nn.functional.pad(out, (0, pad))
     return out
 
 
+def _build_batched_fn(sig: PlanSignature, mesh: VirtualMesh,
+                      reduce_cns: bool = True, reduce_scatter: bool = False):
+    """Program over HOST-STACKED relations for one signature.
+
+    Inputs per relation are numpy ``text [N, P, S, L]``, ``keys [N, P, S]``
+    (dim) or ``[N, P, S, m]`` (fact, the CN's own columns) and ``send [N,
+    P, P, C]`` (``runtime.batch.stack_group``); the program uploads them
+    (pageable copies, as the reference ships its host arrays) and runs the
+    same body as the store family, so the outputs are bit-identical.
+
+    ``reduce_cns=True``  -> freq[vocab]     (CN axis summed on device)
+    ``reduce_cns=False`` -> freq[N, vocab]  (per-CN totals)
+    """
+    device = mesh.device
+
+    def upload(rel):
+        text = torch.from_numpy(rel["text"]).to(device)
+        keys = torch.from_numpy(rel["keys"]).to(device)
+        # per-CN views of the stacked upload, the layout _route takes
+        return {"text": text.unbind(0), "keys": keys.unbind(0),
+                "send": torch.from_numpy(rel["send"]).to(device)}
+
+    def program(fact, dims):
+        with torch.profiler.record_function("fct.group_batched"):
+            return _vmapped_cns(upload(fact), [upload(d) for d in dims], sig,
+                                reduce_cns, reduce_scatter)
+
+    return program
+
+
 def _build_store_fn(sig: PlanSignature, mesh: VirtualMesh, n_stack: int,
-                    reduce_cns: bool = True):
+                    reduce_cns: bool = True, reduce_scatter: bool = False):
     """Program over STORE-RESIDENT relation columns for one signature.
 
     Inputs per relation are ``n_stack`` device tensors (one per CN slot,
@@ -123,7 +162,7 @@ def _build_store_fn(sig: PlanSignature, mesh: VirtualMesh, n_stack: int,
         with torch.profiler.record_function("fct.group_store"):
             return _vmapped_cns(upload(fact, "send", "cols"),
                                 [upload(d, "send") for d in dims], sig,
-                                reduce_cns)
+                                reduce_cns, reduce_scatter)
 
     return program
 
@@ -165,15 +204,16 @@ def _top(values: torch.Tensor, k: int):
     return v[..., :k], pos[..., :k]
 
 
-def _build_topk_fn(sig: PlanSignature, mesh: VirtualMesh):
+def _build_topk_fn(sig: PlanSignature, mesh: VirtualMesh,
+                   reduce_scatter: bool):
     """Finalize program of the ``fct_topk`` family.
 
     Input is the device-resident aggregated histogram in the engine's
-    aggregation layout (on P > 1 workers the reduce-scatter layout, padded to
-    a multiple of P, worker w owning bins ``[w*shard, (w+1)*shard)``; on one
-    worker the psum layout, the whole vocab), the host keyword ids and
-    an int8 stop/PAD exclusion vector in the histogram's layout.  On the
-    virtual mesh, for each worker's shard:
+    aggregation layout (under ``reduce_scatter`` on P > 1 workers, padded
+    to a multiple of P, worker w owning bins ``[w*shard, (w+1)*shard)``;
+    otherwise the psum layout, the whole vocab as one shard), the host
+    keyword ids and an int8 stop/PAD exclusion vector in the histogram's
+    layout.  On the virtual mesh, for each shard:
 
       1. flag wrap-around (any negative bin) BEFORE exclusions — the
          INT32_CHECKED overflow check runs on the device, so the host never
@@ -192,10 +232,12 @@ def _build_topk_fn(sig: PlanSignature, mesh: VirtualMesh):
     (``_top``), shard-local positions map to ascending global ids, and the
     worker-major concatenation keeps ids ascending within each count.
 
-    One worker skips the gather: its one shard is the whole vocab.  Returns ``(counts [k_eff] policy dtype,
-    ids [k_eff] int32, wrapped int32 scalar)``, all on the device.
+    One shard (psum, or one worker) skips the gather: it is the whole
+    vocab.  Returns ``(counts [k_eff] policy dtype, ids [k_eff] int32,
+    wrapped int32 scalar)``, all on the device.
     """
-    vocab, n_shards = sig.vocab, sig.n_devices
+    vocab = sig.vocab
+    n_shards = sig.n_devices if reduce_scatter else 1
     vp = vocab_padded(vocab, n_shards)
     shard = vp // n_shards
     k_eff = k_effective(sig)
@@ -239,28 +281,40 @@ class TopkPending:
 
 class FCTEngine:
     """Query execution runtime: shape-bucketed program cache + batched
-    multi-CN dispatch over the session's device-resident store.  The
-    default engine (``default_engine()``) shares the process-wide cache.
+    multi-CN dispatch.  The default engine (``default_engine()``) shares
+    the process-wide cache.
 
-    ``bytes_shipped`` counts host→device argument bytes per dispatch (send
-    tables and key-column indices; store uploads are accounted by the
-    RelationStore itself); ``device_to_host_bytes`` counts collection;
-    ``groups_pruned`` / ``pruned_rows`` count the signature groups (and
-    their routed fact rows) the top-k family skipped.
+    ``batch=False`` dispatches one program per CN (still cached/bucketed);
+    ``bucket=False`` keys on exact shapes (still cached/batched).
 
-    Multi-worker aggregates come back in the reduce-scatter layout (vocab
-    padded to a multiple of P), one worker's in the psum layout; both give
-    bit-identical totals.
+    ``bytes_shipped`` counts host→device argument bytes per dispatch;
+    ``column_bytes_shipped`` is the text/keys portion of that — zero on the
+    store path, where columns are device-resident (store uploads are
+    accounted by the RelationStore itself); ``device_to_host_bytes`` counts
+    collection; ``groups_pruned`` / ``pruned_rows`` count the signature
+    groups (and their routed fact rows) the top-k family skipped.
+
+    ``reduce_scatter=True`` (default) returns multi-worker aggregates in the
+    reduce-scatter layout (vocab padded to a multiple of P, each worker
+    owning ``vocab/P`` bins) and one worker's in the psum layout; ``False``
+    uses the psum layout everywhere (the equivalence baseline).  Both give
+    bit-identical totals; the choice is part of the program-cache key.
     """
 
     def __init__(self, cache: Optional[ExecutableCache] = None,
-                 metrics=None) -> None:
+                 batch: bool = True, bucket: bool = True,
+                 reduce_scatter: bool = True, metrics=None) -> None:
         self.metrics = metrics if metrics is not None else default_registry()
         self.cache = cache if cache is not None else ExecutableCache(
             metrics=self.metrics)
+        self.batch = batch
+        self.bucket = bucket
+        self.reduce_scatter = reduce_scatter
         self._c_batches = self.metrics.counter("engine.batches_run")
         self._c_cns = self.metrics.counter("engine.cns_run")
         self._c_bytes = self.metrics.counter("engine.bytes_shipped")
+        self._c_column_bytes = self.metrics.counter(
+            "engine.column_bytes_shipped")
         self._c_d2h = self.metrics.counter("engine.device_to_host_bytes")
         self._c_groups_pruned = self.metrics.counter("engine.groups_pruned")
         self._c_pruned_rows = self.metrics.counter("engine.pruned_rows")
@@ -269,43 +323,91 @@ class FCTEngine:
     def batches_run(self) -> int:
         return self._c_batches.value
 
+    @property
+    def column_bytes_shipped(self) -> int:
+        return self._c_column_bytes.value
+
+    def _reduce_scatters(self, n_devices: int) -> bool:
+        """Whether aggregates over ``n_devices`` workers come in the
+        reduce-scatter layout: on one worker the two layouts are one."""
+        return self.reduce_scatter and n_devices > 1
+
+    def _group(self, plans: Sequence[CNPlan],
+               accum: Optional[AccumPolicy] = None
+               ) -> List[Tuple[PlanSignature, List[int]]]:
+        """Signature groups as plan indices; singletons when unbatched."""
+        if not self.batch:
+            return [(plan_signature(p, self.bucket, accum), [i])
+                    for i, p in enumerate(plans)]
+        return group_plan_indices(plans, self.bucket, accum)
+
     def _dispatch(self, sig: PlanSignature, group: Sequence[CNPlan],
                   mesh: VirtualMesh, reduce_cns: bool,
-                  store: RelationStore):
+                  store: Optional[RelationStore] = None):
         """Span/profiler shell around :meth:`_dispatch_group`: one
         ``engine.dispatch_group`` span per launch on the active trace, and a
         ``torch.profiler.record_function`` range so device profiles line
         host spans up with kernel activity."""
+        path = "store" if store is not None else "host"
         family = "sum" if reduce_cns else "percn"
-        with obs_span("engine.dispatch_group", n_cns=len(group), path="store",
+        with obs_span("engine.dispatch_group", n_cns=len(group), path=path,
                       family=family, n_devices=sig.n_devices):
             with torch.profiler.record_function(
-                    f"fct.dispatch_group:store.{family}"):
+                    f"fct.dispatch_group:{path}.{family}"):
                 return self._dispatch_group(sig, group, mesh, reduce_cns,
                                             store)
 
     def _dispatch_group(self, sig: PlanSignature, group: Sequence[CNPlan],
                         mesh: VirtualMesh, reduce_cns: bool,
-                        store: RelationStore):
+                        store: Optional[RelationStore] = None):
         """Enqueue one group on the device; returns the LAZY result tensor
         (callers block via ``_collect``).
 
-        The per-CN-output family rounds the CN axis up to a multiple of
-        CN_BUCKET_MIN (zero-contribution null-plan padding), so batch
-        compositions share programs; the summed family keeps exact N.
+        When bucketing, the per-CN-output family rounds the CN axis up to a
+        multiple of CN_BUCKET_MIN (zero-contribution null-plan padding), so
+        batch compositions share programs; the summed family keeps exact N.
+
+        With a ``store``, relation columns are gathered from device-resident
+        tensors and only the send tables and fact key-column indices are
+        shipped.  Without one, the host pads and stacks every column
+        (``stack_group``) and the program uploads them.
         """
-        if store.mesh != mesh:
-            raise ValueError("the store is bound to another mesh")
         n_stack = len(group)
-        if not reduce_cns:
+        if not reduce_cns and self.bucket:
             n_stack = -(-n_stack // CN_BUCKET_MIN) * CN_BUCKET_MIN
-        (fact, dims), shipped = store_group_args(store, group, sig, n_stack)
-        kind = "fct_store" if reduce_cns else "fct_store_percn"
-        key = (kind, sig, n_stack, mesh)
-        fn = self.cache.get_or_build(
-            key, lambda: _build_store_fn(sig, mesh, n_stack,
-                                         reduce_cns=reduce_cns))
-        self._c_bytes.inc(shipped)
+        # the aggregation layout rides the cache key so both program
+        # variants can coexist
+        rs = self._reduce_scatters(sig.n_devices)
+        agg = "rs" if rs else "psum"
+        if store is not None:
+            if store.mesh != mesh:
+                raise ValueError("the store is bound to another mesh")
+            (fact, dims), shipped = store_group_args(store, group, sig,
+                                                     n_stack)
+            kind = "fct_store" if reduce_cns else "fct_store_percn"
+            key = (kind, sig, n_stack, mesh, agg)
+            fn = self.cache.get_or_build(
+                key, lambda: _build_store_fn(sig, mesh, n_stack,
+                                             reduce_cns=reduce_cns,
+                                             reduce_scatter=rs))
+            self._c_bytes.inc(shipped)
+        else:
+            with obs_span("engine.host_stack", n_stack=n_stack):
+                fact, dims = stack_group(group, sig)
+                if n_stack > len(group):
+                    fact, dims = pad_cn_axis(fact, dims, n_stack)
+            kind = "fct_batched" if reduce_cns else "fct_batched_percn"
+            key = (kind, sig, n_stack, mesh, agg)
+            fn = self.cache.get_or_build(
+                key, lambda: _build_batched_fn(sig, mesh,
+                                               reduce_cns=reduce_cns,
+                                               reduce_scatter=rs))
+            shipped = sum(v.nbytes for v in fact.values()) + sum(
+                v.nbytes for d in dims for v in d.values())
+            columns = shipped - fact["send"].nbytes - sum(
+                d["send"].nbytes for d in dims)
+            self._c_bytes.inc(shipped)
+            self._c_column_bytes.inc(columns)
         out = fn(fact, dims)
         self._c_batches.inc()
         self._c_cns.inc(len(group))
@@ -329,17 +431,15 @@ class FCTEngine:
         ``collect_total`` / ``collect_individual``.  ``individual=True``
         keeps the per-CN output axis so CNs of different queries can share
         a dispatch.  ``store`` (a RelationStore bound to this mesh) holds
-        the relation columns; ``None`` uses a throwaway store.  ``accum``
-        pins the AccumPolicy (default int32-checked)."""
+        the relation columns; ``None`` takes the host-stacked families,
+        which ship every column with the dispatch.  ``accum`` pins the
+        AccumPolicy (default int32-checked)."""
         if not plans:
             raise ValueError("dispatch_plans needs at least one plan")
-        if store is None:
-            store = RelationStore(mesh, metrics=self.metrics)
-        accum = accum if accum is not None else INT32_CHECKED
         return [(idxs, self._dispatch(sig, [plans[i] for i in idxs], mesh,
                                       reduce_cns=not individual,
                                       store=store))
-                for sig, idxs in group_plan_indices(plans, accum)]
+                for sig, idxs in self._group(plans, accum)]
 
     def collect_total(self, pending, vocab: int) -> np.ndarray:
         """Block on an ``individual=False`` handle: total freq[vocab]; the
@@ -362,11 +462,11 @@ class FCTEngine:
                             dtype) -> torch.Tensor:
         """Upload a host ``[vocab]`` vector in the engine's aggregation
         layout — the layout group outputs arrive in: zero-padded to a
-        multiple of P on multi-worker meshes (the reduce-scatter layout),
-        as is on one worker — so the caller can add it to (or feed it
-        beside) device-resident histograms.  Counted as shipped bytes."""
+        multiple of P under reduce-scatter on multi-worker meshes, as is
+        otherwise — so the caller can add it to (or feed it beside)
+        device-resident histograms.  Counted as shipped bytes."""
         arr = np.asarray(vec).astype(dtype, copy=True)
-        if mesh.size > 1:
+        if self._reduce_scatters(mesh.size):
             vp = vocab_padded(len(arr), mesh.size)
             if vp != len(arr):
                 arr = np.pad(arr, (0, vp - len(arr)))
@@ -412,25 +512,25 @@ class FCTEngine:
         on the device; ``host_extra`` is an optional device-resident
         histogram in the same layout added to the group total — sessions
         use it for map-only single-relation CNs, which have no routed plans.
+        ``store=None`` dispatches the groups through the host-stacked family.
         """
         if not plans:
             raise ValueError("dispatch_topk needs at least one plan")
         if prune not in ("off", "zero", "threshold"):
             raise ValueError(f"unknown prune mode {prune!r}")
-        if store is None:
-            store = RelationStore(mesh, metrics=self.metrics)
-        accum = accum if accum is not None else INT32_CHECKED
         vocab = plans[0].vocab_size
-        groups = group_plan_indices(plans, accum)
+        rs = self._reduce_scatters(mesh.size)
+        groups = self._group(plans, accum)
         sig0 = groups[0][0]
         tsig = topk_signature(vocab, sig0.n_devices, sig0.accum, k)
         kw = keyword_ids_array(keywords)
         if excl is None:
             excl = self.vocab_device_vector(np.zeros(vocab, np.int8), mesh,
                                             np.int8)
-        key = ("fct_topk", tsig, len(kw), mesh)
+        agg = "rs" if rs else "psum"
+        key = ("fct_topk", tsig, len(kw), mesh, agg)
         topk_fn = self.cache.get_or_build(
-            key, lambda: _build_topk_fn(tsig, mesh))
+            key, lambda: _build_topk_fn(tsig, mesh, rs))
         self._c_bytes.inc(kw.nbytes)
 
         bounds = [sum(plans[i].contrib_bound for i in idxs)
@@ -525,13 +625,14 @@ class FCTEngine:
 
     def stats(self) -> dict:
         out = self.cache.stats()
-        (batches, cns, shipped, d2h, g_pruned,
+        (batches, cns, shipped, columns, d2h, g_pruned,
          rows_pruned) = self.metrics.values(
-            self._c_batches, self._c_cns, self._c_bytes, self._c_d2h,
-            self._c_groups_pruned, self._c_pruned_rows)
+            self._c_batches, self._c_cns, self._c_bytes,
+            self._c_column_bytes, self._c_d2h, self._c_groups_pruned,
+            self._c_pruned_rows)
         out.update(batches_run=batches, cns_run=cns, bytes_shipped=shipped,
-                   device_to_host_bytes=d2h, groups_pruned=g_pruned,
-                   pruned_rows=rows_pruned)
+                   column_bytes_shipped=columns, device_to_host_bytes=d2h,
+                   groups_pruned=g_pruned, pruned_rows=rows_pruned)
         return out
 
 

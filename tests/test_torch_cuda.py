@@ -448,7 +448,7 @@ def test_device_topk_equal_counts_lowest_ids_first(cuda_device, P):
     out = {}
     for dev in (torch.device("cpu"), cuda_device):
         mesh = make_worker_mesh(P, dev)
-        fn = fct_engine._build_topk_fn(tsig, mesh)
+        fn = fct_engine._build_topk_fn(tsig, mesh, True)
         counts, ids, wrapped = fn(eng.vocab_device_vector(hist, mesh,
                                                           np.int32), kw,
                                   eng.vocab_device_vector(excl, mesh,
@@ -546,3 +546,63 @@ def test_gateway_burst_coalesces_on_card(cuda_device):
             np.testing.assert_array_equal(r.all_freqs, oracle)
             np.testing.assert_array_equal(r.term_ids, ids)
             np.testing.assert_array_equal(r.freqs, f)
+
+
+def _joined_plans(schema, kws, P, r_max=4):
+    from repro_torch.core.candidate_network import (TupleSets,
+                                                    enumerate_star_cns,
+                                                    prune_empty_cns)
+    from repro_torch.core.plan import build_cn_plan
+    ts = TupleSets.build(schema, kws)
+    cns = prune_empty_cns(enumerate_star_cns(len(kws), schema.m, r_max), ts)
+    return [p for p in (build_cn_plan(schema, ts, cn, P) for cn in cns)
+            if p is not None]
+
+
+@pytest.mark.parametrize("rs", [True, False])
+@pytest.mark.parametrize("P", [1, 8])
+def test_host_stacked_families_on_card(cuda_device, P, rs):
+    """Without a store the engine stacks the columns on the host and
+    uploads them: both families launch the kernel, never the plain
+    version, and equal the per-CN path on the CPU, under both policies."""
+    from repro_torch.core.accum import INT64_EXACT
+    from repro_torch.core.fct import run_cn_plan
+    schema, kws = _serving_schema()
+    plans = _joined_plans(schema, kws, P)
+    cpu = make_worker_mesh(P, "cpu")
+    mesh = make_worker_mesh(P, cuda_device)
+    for accum, name in ((INT32_CHECKED, "fct_count_exact_int32"),
+                        (INT64_EXACT, "fct_count_exact_int64")):
+        want = sum(run_cn_plan(p, cpu, accum=accum) for p in plans)
+        eng = fct_engine.FCTEngine(reduce_scatter=rs)
+        kernel.LIB.reset_launches()
+        ops.reset_path_counts()
+        total = eng.run_plans(plans, mesh, accum=accum)
+        indiv = eng.run_plans_individual(plans, mesh, accum=accum)
+        assert kernel.LAUNCHES[name] > 0 and ops.PATH_COUNTS["ref"] == 0
+        np.testing.assert_array_equal(total, want)
+        np.testing.assert_array_equal(indiv.sum(axis=0), want)
+        assert eng.column_bytes_shipped > 0
+
+
+def test_two_jobs_on_card(cuda_device, tmp_path):
+    """MR¹, a checkpoint restored onto the card, then MR²: equal to the
+    fused path, with the kernel and no plain-version call."""
+    from repro_torch.core.fct import run_cn_plan, run_cn_plan_two_jobs
+    from repro_torch.distributed.checkpoint import restore_checkpoint
+    schema, kws = _serving_schema()
+    plan = max((p for p in _joined_plans(schema, kws, 1)
+                if len(p.included) == 2), key=lambda p: p.fact.ref.n_rows)
+    mesh = make_worker_mesh(1, cuda_device)
+    want = run_cn_plan(plan, make_worker_mesh(1, "cpu"))
+    kernel.LIB.reset_launches()
+    ops.reset_path_counts()
+    np.testing.assert_array_equal(run_cn_plan_two_jobs(plan, mesh), want)
+    np.testing.assert_array_equal(
+        run_cn_plan_two_jobs(plan, mesh, checkpoint_dir=str(tmp_path)), want)
+    assert kernel.LAUNCHES["fct_count_exact_int32"] >= 2 * (1 + 2)
+    assert ops.PATH_COUNTS["ref"] == 0
+    template = {"fact": {"text": torch.zeros(1, device=cuda_device,
+                                             dtype=torch.int32)}}
+    _, back = restore_checkpoint(str(tmp_path), template)
+    assert back["fact"]["text"].is_cuda

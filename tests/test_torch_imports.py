@@ -54,6 +54,7 @@ def test_every_module_imports_without_a_card():
     assert "repro_torch.launch.serve" in names
     assert "repro_torch.launch.fct_serve" in names
     assert "repro_torch.serve.gateway" in names
+    assert "repro_torch.distributed.checkpoint" in names
     for name in names:
         importlib.import_module(name)
 

@@ -107,7 +107,7 @@ def test_tie_break_is_lowest_id_through_the_program(P):
     host oracle's stable ``argsort(-f)``, at every P."""
     vocab, k = 50, 8
     tsig = engine.topk_signature(vocab, P, INT32_CHECKED, k)
-    fn = engine._build_topk_fn(tsig, make_worker_mesh(P, "cpu"))
+    fn = engine._build_topk_fn(tsig, make_worker_mesh(P, "cpu"), True)
     rng = np.random.default_rng(0)
     hist = rng.integers(0, 4, vocab).astype(np.int32)   # dense small ties
     hist[[7, 23, 41]] = 9                               # three-way top tie
@@ -142,7 +142,7 @@ def test_all_equal_counts_come_out_in_id_order(P):
         tsig = engine.topk_signature(v, P, INT64_EXACT, 20)
         mesh = make_worker_mesh(P, "cpu")
         eng = FCTEngine(cache=ExecutableCache())
-        fn = engine._build_topk_fn(tsig, mesh)
+        fn = engine._build_topk_fn(tsig, mesh, True)
         excl = np.zeros(v, np.int8)
         excl[0] = 1
         counts, ids, _ = fn(eng.vocab_device_vector(np.full(v, 5), mesh,
@@ -159,7 +159,7 @@ def test_device_wrap_flag_raises_like_the_reference():
     mesh = make_worker_mesh(1, "cpu")
     eng = FCTEngine(cache=ExecutableCache())
     tsig = engine.topk_signature(50, 1, INT32_CHECKED, 5)
-    fn = engine._build_topk_fn(tsig, mesh)
+    fn = engine._build_topk_fn(tsig, mesh, True)
     counts, ids, wrapped = fn(eng.vocab_device_vector(hist, mesh, np.int32),
                               engine.keyword_ids_array([]),
                               eng.vocab_device_vector(np.zeros(50, np.int8),
