@@ -8,7 +8,8 @@ Phases, one line each, then a kernels line and a last line with the device:
   1. card       ``nvidia-smi`` name and power limit.
   2. build      compile the hand-written CUDA kernels from the checkout's
                 sources (``nvcc``, one process per source, started
-                together): fct_count, flash_attention, lru_scan.
+                together): fct_count, flash_attention and lru_scan (each
+                LM source holds its backward kernel too).
      build_report  ptxas's registers and spills of each kernel (fct_count,
                 flash_attention, lru_scan), and the HMMA (tensor-core)
                 instructions ``cuobjdump -sass`` finds in each: every bf16
@@ -27,6 +28,12 @@ Phases, one line each, then a kernels line and a last line with the device:
                 / 128 channels) edges: S in {1, 127, 128, 129, 8 229}, W in
                 {5, 127, 129, 2 560}, B 1 and 3, views off a 16-byte
                 boundary, a long-memory input (a in [0.999, 1), S 8 192).
+                On every flash and lru_scan case also the backward kernel
+                against the plain version's autograd on the card: flash
+                float32 within 1e-4 of each gradient's max |g|, bf16 within
+                4e-2 + 4e-2 |g|; lru_scan float32 within 1e-5 max|g| +
+                1e-5 |g|, bf16 4e-2 + 4e-2 |g|; two backward calls
+                bit-equal.
   4. main       the FCT main path at TPC-H SF1 cardinalities (LINEITEM
                 6 001 215, PART 200 000, SUPPLIER 10 000, ORDERS 1 500 000;
                 TPC-H spec v3 §4.2.5), text_len 12, vocab 32 768: a cold
@@ -139,7 +146,54 @@ Phases, one line each, then a kernels line and a last line with the device:
                 share of 3.35 TB/s both ways, the chunk and tile the built
                 library reports, two controls (B 4 x S 8 192 of the same
                 width, and a long-memory input: a in [0.999, 1)), and one
-                ``torch.add`` of a and b, which moves the same bytes.
+                ``torch.add`` of a and b, which moves the same bytes.  Then
+                the backward kernels on lm_train's first backward inputs
+                (the last local layer's q, k, v, o, lse, dO; the last rglru
+                layer's a, h, dh): held to their plain versions, two calls
+                bit-equal.  K3b with dO brought to a unit max by a power of
+                two: against its own formula in dense float32 (each of dq,
+                dk, dv within 2^-8 |dense| + 1e-4 max|dense|, a limit that
+                zeros and the band cut by 32 keys must break in each), and
+                through autograd against the plain version's (2^-7 |plain|
+                + 2^-7 max|plain|); K4b against the plain loop run
+                backwards within 1e-5 max|g| + 1e-5 |g|.  Then timed beside
+                the bound (K3b: the band's backward operations, 2.5 x the
+                forward's, at the bf16 peak; K4b: 5 B*S*W elements at 3.35
+                TB/s), the plain versions' backward
+                and ``scaled_dot_product_attention``'s backward (each
+                forward + backward minus its forward), launches per train
+                step.  (Run after phases 14-16, whose inputs it uses.)
+ 14. lm_train   recurrentgemma-2b at full width and depth in bf16, remat
+                "full", random weights from ``--seed``: 6
+                ``make_train_step`` steps of B 1 x S 4 096 from
+                ``train/loop.py::data_stream(--seed)`` (cut from the
+                dry-run's train_4k, B 256 x S 4 096: one card holds B 1),
+                every count reset just before each step and read just after:
+                per step 16 flash forward launches (8 local layers, each
+                recomputed once), 8 flash_attention_bwd, 34 lru_scan (the 16
+                rglru layers of the 8 checkpointed units twice, the 2 suffix
+                rglru layers once), 18 lru_scan_bwd, no plain-version call;
+                finite losses and grad norms, the last loss below the first;
+                median step ms, tokens/s, ``max_memory_allocated``, and one
+                more step under ``torch.profiler``.
+ 15. lm_grad    float32, full width, depth cut to one unit (rglru, rglru,
+                local) so float32 state and the plain path fit, B 1 x S
+                2 304: loss and every gradient leaf through the kernels
+                against the plain versions (``backend="ref"``): loss within
+                1e-5 relative, each leaf within 1e-4 of its max |g|.
+ 16. train_loop ``python -m repro_torch.launch.train --full --layers 3``
+                (one unit at full width; at full depth the optimizer state
+                alone is 35 GB of float32 npz), B 1 x S 2 304, in process:
+                8 steps uninterrupted; 8 with ``--ckpt-every 4 --fail-at 4``
+                into a temporary directory, which fails as injected; then
+                resumed to step 8, its losses within 1e-5 relative of the
+                uninterrupted run's (bit-equality reported).  Then the
+                compressed data-parallel trainer at P 4 (B 4 x S 1 024, one
+                unit, bf16) 12 steps against the exact one: both train, the
+                last losses within 0.1; step 1's ``compressed_psum`` on the
+                card bit-equal, leaf by leaf, to a plain recomputation of
+                its definition (shared scale, half-even rounding, int32
+                sum, residual rounded once).
 
 Float32 matrix products run in full float32 (TF32 off).  Exits non-zero,
 printing no result, when there is no CUDA device, when the package is
@@ -149,6 +203,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -208,8 +263,9 @@ def kernel_name(mangled: str) -> str:
     m = re.search(r"\d+([a-z_]+kernel)I(.*?)EEv", mangled)
     if m is None:
         return mangled
-    args = re.findall(r"Li(\d+)E", m.group(2)) or [
-        _ARG_TYPES.get(m.group(2), m.group(2))]
+    dims = re.findall(r"Li(\d+)E", m.group(2))
+    dtype = m.group(2).split("Li")[0]
+    args = ([_ARG_TYPES.get(dtype, dtype)] if dtype else []) + dims
     return f"{m.group(1)}<{','.join(args)}>"
 
 
@@ -1167,6 +1223,27 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 4e-2}
 CAPTURED_BF16_REL = 2.0 ** -7
 CAPTURED_BF16_ABS_OF_MEAN = 2.0 ** -8
 LRU_TOL = 1e-5
+# a backward kernel in float32 against the plain version's autograd: flash
+# within 1e-4 of each gradient's max |g| (dk and dv sum over every query row
+# and head of a group, in another order); lru_scan by LRU_TOL, scaled
+FLASH_GRAD_TOL = 1e-4
+# the bf16 backward at lm_train's own inputs, its dO scaled by a power of two
+# to a max |dO| in [0.5, 1) (the gradients are linear in dO; the loss's own
+# dO, about 1e-8, makes any fixed absolute term vacuous), held two ways.
+# (1) Against its own formula in dense float32 matrices from the same q, k,
+# v, o, lse and dO: the kernel sums in float32 and rounds to bf16 once, so
+# 2^-8 |dense| + FLASH_GRAD_TOL max|dense| per tensor; zeros, and the
+# formula with the band cut by BAND_CUT keys at its far edge (what a
+# backward that dropped a tile there would compute), must break that limit
+# in each of dq, dk, dv.  (2) Through the autograd op against the plain
+# version's autograd: both round to bf16 once, 2^-7 |plain| apart, but the
+# kernel's delta = rowsum(dO o) takes the bf16 o where the plain autograd
+# differentiates through its float32 o, which the term 2^-7 max|plain|
+# covers (on an H100 at seed 0, dq needed 0.0029 max|plain| of it)
+FORMULA_BWD_REL = 2.0 ** -8
+CAPTURED_BWD_REL = 2.0 ** -7
+CAPTURED_BWD_ABS_OF_MAX = 2.0 ** -7
+BAND_CUT = 32
 # H100 SXM peak operations/s by input type: dense bf16 tensor cores, and
 # float32 outside the tensor cores
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": PEAK_SCALAR_OPS_PER_S}
@@ -1176,33 +1253,56 @@ LM_KERNELS = {  # name -> (source, TPU kernel it replaces)
         "src/repro/kernels/flash_attention/kernel.py:79"),
     "lru_scan": ("src/repro_torch/kernels/lru_scan/csrc/lru_scan.cu",
                  "src/repro/kernels/lru_scan/kernel.py:43"),
+    # the backward kernels have no Pallas counterpart: the JAX package's
+    # training differentiates these jnp functions instead
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/ref.py:23"),
+    "lru_scan_bwd": ("src/repro_torch/kernels/lru_scan/csrc/lru_scan.cu",
+                     "src/repro/models/rglru.py:92"),
 }
+NO_PALLAS = ("no Pallas counterpart: the reference's gradient is JAX's "
+             "autodiff of the jnp function named in replaces")
+# lm_train: cut from the dry-run's train_4k (B 256 x S 4 096) to B 1, which
+# one card's memory forces (float32 moments alone are 23 GB); S stays 4 096,
+# past the 2 048 window
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 1, 4096, 6
+GRAD_S = 2304                       # lm_grad: past the window, one unit
+LM_GRAD_TOL = 1e-4                  # of each leaf's max |g|, float32
+LOOP_S, LOOP_STEPS, LOOP_FAIL, LOOP_EVERY = 2304, 8, 4, 4
+LOOP_TOL = 1e-5                     # relative, resumed vs uninterrupted
+DP_P, DP_B, DP_S, DP_STEPS, DP_TOL = 4, 4, 1024, 12, 0.1
+DP_CHECK_CALL = 2      # the compressed_psum call held to the plain one: step
+# 1's, the first whose residuals are not all 0
 
 
 def count_modules():
+    """(every kernel library, every op module): the libraries count
+    launches (each LM op's backward is a second kernel of its library), the
+    ops the path each call took."""
     from repro_torch.kernels.fct_count import kernel as fct_kernel
     from repro_torch.kernels.fct_count import ops as fct_ops
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.lru_scan import kernel as lru_kernel
     from repro_torch.kernels.lru_scan import ops as lru_ops
-    return ((fct_kernel, flash_kernel, lru_kernel),
+    return ((fct_kernel.LIB, flash_kernel.LIB, lru_kernel.LIB),
             (fct_ops, flash_ops, lru_ops))
 
 
 def reset_all_counts() -> None:
     """Every kernel's launch count and every op's path count to 0."""
-    kernels, opses = count_modules()
-    for m in kernels:
-        m.LIB.reset_launches()
+    libs, opses = count_modules()
+    for lib in libs:
+        lib.reset_launches()
     for m in opses:
         m.reset_path_counts()
 
 
 def read_counts():
     """(launches by kernel name, path counts by op) as they stand."""
-    kernels, opses = count_modules()
-    launches = {k: v for m in kernels for k, v in m.LAUNCHES.items()}
+    libs, opses = count_modules()
+    launches = {k: v for lib in libs for k, v in lib.launches.items()}
     paths = {m.__name__.split(".")[-2]: dict(m.PATH_COUNTS) for m in opses}
     return launches, paths
 
@@ -1314,17 +1414,95 @@ def lru_err(torch, lru_ops, a, b):
     return float(diff.max()), tol, share
 
 
+def grads_of(fn, tensors, g):
+    """The gradients of ``(fn(*tensors) * g).sum()`` with respect to each
+    of ``tensors``, from fresh leaf copies."""
+    ins = [t.detach().clone().requires_grad_(True) for t in tensors]
+    fn(*ins).backward(g)
+    return [t.grad for t in ins]
+
+
+def grad_err(torch, got, again, want, rule):
+    """(max abs error, worst error over its limit, bit-equal repeat) of the
+    kernels' gradients ``got`` (and a second call's ``again``) against the
+    plain version's autograd ``want``, tensor by tensor; ``rule(w)`` is the
+    limit of each element of a plain gradient ``w`` (float32)."""
+    torch.cuda.synchronize()
+    err = share = 0.0
+    for a, w in zip(got, want):
+        check(bool(torch.isfinite(a).all()), "non-finite gradient")
+        a, w = a.detach().float(), w.detach().float()
+        d = (a - w).abs()
+        err = max(err, float(d.max()))
+        share = max(share, float((d / rule(w)).max()))
+    return err, share, all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def flash_grad_err(torch, flash_ops, q, k, v, causal, window, g):
+    """The backward kernel against the plain version's autograd on one
+    input: float32 within 1e-4 of each gradient's max |g|, bfloat16 by the
+    forward's rule, 4e-2 + 4e-2 |g|."""
+    kw = dict(causal=causal, window=window)
+    got, again = (grads_of(lambda *t: flash_ops.flash_attention(*t, **kw),
+                           (q, k, v), g) for _ in range(2))
+    want = grads_of(lambda *t: flash_ops.flash_attention(
+        *t, block_q=64, block_k=32, backend="ref", **kw), (q, k, v), g)
+    if q.dtype == torch.float32:
+        def rule(w):
+            return FLASH_GRAD_TOL * w.abs().max()
+    else:
+        tol = FLASH_TOL["bfloat16"]
+
+        def rule(w):
+            return tol + tol * w.abs()
+    return grad_err(torch, got, again, want, rule)
+
+
+def lru_grad_err(torch, lru_ops, a, b, g):
+    """The reverse-scan kernel against the plain loop's autograd on one
+    input: float32 within 1e-5 max|g| + 1e-5 |g| (the forward's rule, its
+    absolute term scaled by the gradient, which sums dh over many steps),
+    bfloat16 4e-2 + 4e-2 |g|."""
+    got, again = (grads_of(lru_ops.lru_scan, (a, b), g) for _ in range(2))
+    want = grads_of(lambda *t: lru_ops.lru_scan(*t, backend="ref"), (a, b),
+                    g)
+    if a.dtype == torch.float32:
+        def rule(w):
+            return LRU_TOL * w.abs().max() + LRU_TOL * w.abs()
+    else:
+        tol = FLASH_TOL["bfloat16"]
+
+        def rule(w):
+            return tol + tol * w.abs()
+    return grad_err(torch, got, again, want, rule)
+
+
 def run_lm_kernel_cases(torch, np, dev):
+    """Each LM kernel and each backward kernel against its plain version
+    on the case lists above."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.lru_scan import ops as lru_ops
-    errs = {"flash_attention": 0.0, "lru_scan": 0.0}
+    errs = {"flash_attention": 0.0, "lru_scan": 0.0,
+            "flash_attention_bwd": 0.0, "lru_scan_bwd": 0.0}
     lines = []
+    gen = torch.Generator(device=dev).manual_seed(99)
     for label, q, k, v, causal, window in flash_cases(torch, np, dev):
         err, tol, ok = flash_err(torch, flash_ops, q, k, v, causal, window)
         check(ok, f"flash {label}: kernel != plain (max abs err {err}, "
                   f"tolerance {tol})")
         errs["flash_attention"] = max(errs["flash_attention"], err)
         lines.append(f"flash {label}: {err:.3g} <= {tol}")
+        g = torch.randn((*q.shape[:3], v.shape[-1]), generator=gen,
+                        device=dev).to(q.dtype)
+        err, share, equal = flash_grad_err(torch, flash_ops, q, k, v, causal,
+                                           window, g)
+        check(share <= 1.0 and equal,
+              f"flash backward {label}: kernel != plain autograd (max abs "
+              f"err {err}, worst error {share} x its limit, two calls "
+              f"bit-equal {equal})")
+        errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], err)
+        lines.append(f"flash backward {label}: {err:.3g} (worst {share:.3f} "
+                     f"of its limit, repeat bit-equal)")
     for label, a, b in lru_cases(torch, np, dev):
         err, tol, share = lru_err(torch, lru_ops, a, b)
         check(share <= 1.0, f"lru_scan {label}: kernel != plain (max abs err "
@@ -1333,6 +1511,15 @@ def run_lm_kernel_cases(torch, np, dev):
         errs["lru_scan"] = max(errs["lru_scan"], err)
         lines.append(f"lru_scan {label}: {err:.3g} (worst {share:.3f} of "
                      f"the {tol} limit)")
+        g = torch.randn(a.shape, generator=gen, device=dev).to(a.dtype)
+        err, share, equal = lru_grad_err(torch, lru_ops, a, b, g)
+        check(share <= 1.0 and equal,
+              f"lru_scan backward {label}: kernel != plain autograd (max abs "
+              f"err {err}, worst error {share} x its limit, two calls "
+              f"bit-equal {equal})")
+        errs["lru_scan_bwd"] = max(errs["lru_scan_bwd"], err)
+        lines.append(f"lru_scan backward {label}: {err:.3g} (worst "
+                     f"{share:.3f} of its limit, repeat bit-equal)")
     return errs, lines
 
 
@@ -1388,7 +1575,8 @@ def run_lm_prefill(torch, args, dev):
     reset_all_counts()
     try:
         t1 = time.perf_counter()
-        logits = M.forward(params, batch, cfg)
+        with torch.inference_mode():
+            logits = M.forward(params, batch, cfg)
         torch.cuda.synchronize(dev)
         cold_ms = (time.perf_counter() - t1) * 1e3
     finally:
@@ -1413,12 +1601,17 @@ def run_lm_prefill(torch, args, dev):
     del logits
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
-    logits = M.forward(params, batch, cfg)
+    with torch.inference_mode():
+        logits = M.forward(params, batch, cfg)
     torch.cuda.synchronize(dev)
     warm_ms = (time.perf_counter() - t1) * 1e3
     del logits
+
+    def prefill():
+        with torch.inference_mode():
+            M.forward(params, batch, cfg)
     profile = profile_device(
-        torch, lambda: M.forward(params, batch, cfg),
+        torch, prefill,
         {"flash_attention": "flash_attention",
          "lru_scan": "lru_scan_kernel"})
     print(f"[lm_prefill] forward cold {cold_ms:.3f} ms, warm {warm_ms:.3f} "
@@ -1443,7 +1636,8 @@ def run_lm_decode(torch, args, dev) -> str:
     tokens = M.make_dummy_batch(cfg, DECODE_B, DECODE_S, gen, dev)["tokens"]
     reset_all_counts()
     t0 = time.perf_counter()
-    fwd = M.forward(params, {"tokens": tokens}, cfg)
+    with torch.inference_mode():
+        fwd = M.forward(params, {"tokens": tokens}, cfg)
     torch.cuda.synchronize(dev)
     fwd_ms = (time.perf_counter() - t0) * 1e3
     launches, paths = read_counts()
@@ -1500,6 +1694,360 @@ def run_lm_serve(torch, args) -> str:
             + " / ".join(out.getvalue().strip().splitlines()))
 
 
+# --- training: lm_train, lm_grad, train_loop ------------------------------------
+
+def train_step_launches(cfg, layout):
+    """The launches one train step must make of each LM kernel: under
+    remat "full" each repetition of the layout's unit runs its forward
+    twice (the recompute), the prefix and suffix layers once, and every
+    layer its backward once."""
+    n_pre, n_body = len(layout.prefix), len(layout.unit) * layout.reps
+    blocks = cfg.blocks()
+    body = blocks[n_pre:n_pre + n_body]
+    rest = blocks[:n_pre] + blocks[n_pre + n_body:]
+
+    def n(bs, mixer):
+        return sum(m == mixer for m, _ in bs)
+    twice = 2 if cfg.remat != "none" else 1
+    return {"flash_attention": twice * n(body, "local") + n(rest, "local"),
+            "flash_attention_bwd": n(blocks, "local"),
+            "lru_scan": twice * n(body, "rglru") + n(rest, "rglru"),
+            "lru_scan_bwd": n(blocks, "rglru")}
+
+
+def run_lm_train(torch, args, dev):
+    """recurrentgemma-2b at full width and depth, bf16, remat "full": 6
+    ``make_train_step`` steps of B x S from ``data_stream(--seed)``, every
+    count reset just before each step and read just after it; one more
+    step under the profiler.  Keeps the first backward inputs of each
+    backward kernel (for lm_timing)."""
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.lru_scan import kernel as lru_kernel
+    from repro_torch.models import model as M
+    from repro_torch.train.loop import data_stream
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = lm_config(torch.bfloat16)
+    check(cfg.remat == "full", f"remat {cfg.remat}")
+    t0 = time.perf_counter()
+    params, opt = init_train_state(cfg, dev, seed=args.seed)
+    torch.cuda.synchronize(dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    layout = M.decompose(cfg.blocks())
+    want = train_step_launches(cfg, layout)
+    print(f"[lm_train] {cfg.name} full width and depth, {n_params} "
+          f"parameters bf16, float32 moments, remat {cfg.remat} over "
+          f"{layout.reps} x {[m for m, _ in layout.unit]} (suffix "
+          f"{[m for m, _ in layout.suffix]}), batch {TRAIN_B} x seq "
+          f"{TRAIN_S}; made in {time.perf_counter() - t0:.3f}s; launches a "
+          f"step must make: {want}", flush=True)
+    stream = data_stream(cfg, TRAIN_B, TRAIN_S, seed=args.seed, device=dev)
+    step = make_train_step(cfg)
+    flash_rec = FirstCall(flash_kernel.flash_attention_bwd)
+    lru_rec = FirstCall(lru_kernel.lru_scan_bwd)
+    flash_kernel.flash_attention_bwd = flash_rec
+    lru_kernel.lru_scan_bwd = lru_rec
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, norms, times = [], [], []
+    try:
+        for i in range(TRAIN_STEPS):
+            batch = next(stream)
+            reset_all_counts()
+            t1 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch)
+            loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+            torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t1) * 1e3)
+            launches, paths = read_counts()
+            got = {k: launches[k] for k in want}
+            check(got == want, f"train step {i}: launches {got} != {want}")
+            check(all(p["ref"] == 0 for p in paths.values()),
+                  f"train step {i}: a plain version ran: {paths}")
+            losses.append(loss)
+            norms.append(gnorm)
+    finally:
+        flash_kernel.flash_attention_bwd = flash_rec.fn
+        lru_kernel.lru_scan_bwd = lru_rec.fn
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"non-finite loss or grad_norm: {losses} {norms}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    profile = profile_device(
+        torch, lambda: step(params, opt, next(stream)),
+        {"flash_attention_bwd": "flash_bwd", "flash_attention":
+         "flash_attention", "lru_scan_bwd": "lru_scan_bwd_kernel",
+         "lru_scan": "lru_scan_kernel"})
+    print(f"[lm_train] losses {losses}; grad_norms {norms}; step ms "
+          f"{[round(t, 3) for t in times]} (median of steps 1-"
+          f"{TRAIN_STEPS - 1}: {steady:.3f} ms, "
+          f"{TRAIN_B * TRAIN_S / steady * 1e3:.1f} tokens/s); "
+          f"device_peak_bytes {peak}; launches a step {want}, 0 "
+          f"plain-version calls", flush=True)
+    print(f"[lm_train] profile of one more step: {profile}", flush=True)
+    del params, opt, metrics
+    torch.cuda.empty_cache()
+    return {"flash_attention_bwd": (flash_rec.args,
+                                    want["flash_attention_bwd"]),
+            "lru_scan_bwd": (lru_rec.args, want["lru_scan_bwd"])}, {
+        "step_ms": steady, "tokens_per_s": TRAIN_B * TRAIN_S / steady * 1e3,
+        "device_peak_bytes": peak, "losses": losses}
+
+
+class plain_versions:
+    """Within it the model's attention and scan take the plain versions
+    (``backend="ref"``), on any device: the comparison side of lm_grad."""
+
+    def __enter__(self):
+        import functools
+
+        from repro_torch.models import attention, rglru
+        self.saved = (attention.flash_attention, rglru.lru_scan)
+        attention.flash_attention = functools.partial(self.saved[0],
+                                                      backend="ref")
+        rglru.lru_scan = functools.partial(self.saved[1], backend="ref")
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention, rglru
+        attention.flash_attention, rglru.lru_scan = self.saved
+
+
+def run_lm_grad(torch, args, dev) -> str:
+    """Full width in float32, depth cut to one unit (rglru, rglru, local):
+    the loss and every gradient leaf through the kernels against the same
+    with the plain versions."""
+    import dataclasses
+
+    from repro_torch.models import model as M
+    from repro_torch.train.loop import data_stream
+    cfg = lm_config(torch.float32)
+    unit = M.decompose(cfg.blocks()).unit
+    cfg = dataclasses.replace(cfg, n_layers=len(unit))
+    params = M.init_params(cfg, dev, seed=args.seed + 2).requires_grad_(True)
+    batch = next(data_stream(cfg, 1, GRAD_S, seed=args.seed, device=dev))
+    want = train_step_launches(cfg, M.decompose(cfg.blocks()))
+    reset_all_counts()
+    t0 = time.perf_counter()
+    total, _ = M.loss_fn(params, batch, cfg)
+    total.backward()
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches, paths = read_counts()
+    check({k: launches[k] for k in want} == want,
+          f"lm_grad launches {launches} != {want}")
+    check(all(p["ref"] == 0 for p in paths.values()), f"plain ran: {paths}")
+    got = {n: p.grad for n, p in params.named_parameters()}
+    params.zero_grad(set_to_none=True)
+    with plain_versions():
+        ref_total, _ = M.loss_fn(params, batch, cfg)
+        ref_total.backward()
+    torch.cuda.synchronize(dev)
+    launches, paths = read_counts()
+    check(paths["flash_attention"]["ref"] > 0 and paths["lru_scan"]["ref"]
+          > 0, f"the plain side missed a plain version: {paths}")
+    loss, ref_loss = float(total.detach()), float(ref_total.detach())
+    check(abs(loss - ref_loss) <= LOOP_TOL * abs(ref_loss),
+          f"lm_grad losses {loss} != {ref_loss}")
+    worst, worst_name = 0.0, None
+    for name, p in params.named_parameters():
+        scale = float(p.grad.abs().max())
+        share = float((got[name] - p.grad).abs().max()) / (LM_GRAD_TOL *
+                                                           scale)
+        if share > worst:
+            worst, worst_name = share, name
+    check(worst <= 1.0, f"lm_grad: {worst_name} off by {worst} x its limit")
+    n_leaves = len(got)
+    del params, got, total, ref_total
+    torch.cuda.empty_cache()
+    return (f"{cfg.name} float32 full width, {cfg.n_layers} layers "
+            f"{[m for m, _ in unit]} (remat {cfg.remat}), B 1 x S {GRAD_S}: "
+            f"loss {loss!r} through the kernels, {ref_loss!r} through the "
+            f"plain versions (difference {loss - ref_loss:.3g}, limit "
+            f"{LOOP_TOL} relative); every one of {n_leaves} gradient leaves "
+            f"within {LM_GRAD_TOL} of its max |g| (worst {worst:.4f} of the "
+            f"limit, {worst_name}); loss + backward through the kernels "
+            f"{ms:.3f} ms with launches {want}")
+
+
+def plain_compressed_psum_check(torch, grads, before, mean, after):
+    """Holds one ``compressed_psum`` call on the card to a plain
+    recomputation of its definition, leaf by leaf, bit for bit: with x =
+    g + e (float32) of every worker, one shared scale s = max|x| / 127
+    (the float32 reciprocal of 127, as the reference compiles it), q =
+    round-half-even(x / s) clipped to +-127, the mean sum_w q * s / P and
+    each worker's residual x - q s computed exactly and rounded once.
+    ``before`` holds the residuals the call was given, ``after`` those it
+    left.  Returns (leaves, elements, max |residual|, max |mean|)."""
+    inv127 = float(torch.tensor(1.0 / 127.0, dtype=torch.float32))
+    chunk = 1 << 26
+    elements, res_max, mean_max = 0, 0.0, 0.0
+    for name, g in grads.items():
+        n = g.shape[0]
+        top = max(float((g[w].float() + before[name][w]).abs().max())
+                  for w in range(n))
+        scale = torch.clamp(torch.tensor(top, dtype=torch.float32,
+                                         device=g.device) * inv127,
+                            min=1e-30)
+        flat = g.reshape(n, -1)
+        qsum = torch.zeros(flat.shape[1], dtype=torch.int32, device=g.device)
+        for w in range(n):
+            e0, e1 = before[name][w].reshape(-1), after[name][w].reshape(-1)
+            for i in range(0, flat.shape[1], chunk):
+                j = slice(i, i + chunk)
+                x = flat[w, j].float() + e0[j]
+                q = torch.round(x / scale).clamp_(-127, 127)
+                qsum[j] += q.to(torch.int32)
+                res = (x.double() - q.double() * scale.double()).float()
+                check(torch.equal(res, e1[j]), f"compressed_psum {name}: "
+                      f"worker {w}'s residual != the plain recomputation")
+                res_max = max(res_max, float(res.abs().max()))
+        want = (qsum.float() * scale / n).view(mean[name].shape)
+        check(torch.equal(want, mean[name]), f"compressed_psum {name}: the "
+              f"mean != the plain recomputation (max abs difference "
+              f"{float((want - mean[name]).abs().max())})")
+        elements += g.numel()
+        mean_max = max(mean_max, float(want.abs().max()))
+    return len(grads), elements, res_max, mean_max
+
+
+class CheckedPsum:
+    """Wraps ``compressed_psum`` during a run: call number ``at`` keeps a
+    copy of the residuals it is given and is held to
+    ``plain_compressed_psum_check``; the other calls pass through."""
+
+    def __init__(self, torch, fn, at):
+        self.torch, self.fn, self.at = torch, fn, at
+        self.calls, self.report = 0, None
+
+    def __call__(self, grads, error):
+        self.calls += 1
+        if self.calls != self.at:
+            return self.fn(grads, error)
+        before = {n: e.clone() for n, e in error.items()}
+        mean, error = self.fn(grads, error)
+        self.report = plain_compressed_psum_check(self.torch, grads, before,
+                                                  mean, error)
+        return mean, error
+
+
+def run_train_loop(torch, args, dev) -> str:
+    """``launch/train.py`` at full width, depth cut to one unit: an
+    uninterrupted run, a run that checkpoints and fails at step 4, and its
+    resume to step 8; then the compressed data-parallel trainer at P 4
+    against the exact one."""
+    import contextlib
+    import dataclasses
+    import io
+    import tempfile
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.mesh import make_worker_mesh
+    from repro_torch.models import model as M
+    from repro_torch.train import dp_trainer
+    from repro_torch.train.dp_trainer import init_error, make_compressed_dp_step
+    from repro_torch.train.loop import data_stream
+    from repro_torch.train.step import init_train_state
+    unit = M.decompose(get_arch(LM_ARCH).blocks()).unit
+    argv = ["--arch", LM_ARCH, "--full", "--layers", str(len(unit)),
+            "--batch", "1", "--seq", str(LOOP_S), "--steps",
+            str(LOOP_STEPS), "--device", str(dev), "--seed", str(args.seed)]
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(
+            out):
+        t0 = time.perf_counter()
+        whole = launcher.main(argv)["losses"]
+        torch.cuda.empty_cache()
+        ckpt = ["--ckpt-dir", tmp, "--ckpt-every", str(LOOP_EVERY)]
+        t1 = time.perf_counter()
+        try:
+            launcher.main(argv + ckpt + ["--fail-at", str(LOOP_FAIL)])
+            failed = False
+        except RuntimeError as exc:
+            failed = f"injected failure at step {LOOP_FAIL}" in str(exc)
+        torch.cuda.empty_cache()
+        ckpt_bytes = sum(f.stat().st_size for f in Path(tmp).rglob("*")
+                         if f.is_file())
+        free = shutil.disk_usage(tmp).free
+        t2 = time.perf_counter()
+        resumed = launcher.main(argv + ckpt)["losses"]
+        t3 = time.perf_counter()
+        torch.cuda.empty_cache()
+    check(failed, "the run with --fail-at did not fail as injected")
+    check(f"resumed from step {LOOP_FAIL}" in out.getvalue(),
+          "the resumed run did not resume from its checkpoint")
+    check(len(resumed) == LOOP_STEPS - LOOP_FAIL,
+          f"resumed run took {len(resumed)} steps")
+    check(all(math.isfinite(x) for x in whole + resumed), "non-finite loss")
+    worst = max(abs(a - b) / abs(b) for a, b in zip(resumed,
+                                                    whole[LOOP_FAIL:]))
+    check(worst <= LOOP_TOL, f"resumed losses {resumed} != uninterrupted "
+                             f"{whole[LOOP_FAIL:]}")
+    bit_equal = resumed == whole[LOOP_FAIL:]
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=len(unit))
+    mesh = make_worker_mesh(DP_P, dev)
+    dp = {}
+    psum = CheckedPsum(torch, dp_trainer.compressed_psum, DP_CHECK_CALL)
+    t4 = time.perf_counter()
+    dp_trainer.compressed_psum = psum
+    try:
+        for compress in (True, False):
+            params, opt = init_train_state(cfg, dev, seed=args.seed)
+            err = init_error(params, mesh)
+            step = make_compressed_dp_step(cfg, mesh, compress=compress)
+            stream = data_stream(cfg, DP_B, DP_S, seed=args.seed, device=dev)
+            losses = []
+            for _ in range(DP_STEPS):
+                params, opt, err, metrics = step(params, opt, err,
+                                                 next(stream))
+                losses.append(float(metrics["loss"]))
+            dp["compressed" if compress else "exact"] = losses
+            del params, opt, err, metrics
+            torch.cuda.empty_cache()
+    finally:
+        dp_trainer.compressed_psum = psum.fn
+    t5 = time.perf_counter()
+    check(psum.calls == DP_STEPS and psum.report is not None,
+          f"compressed_psum ran {psum.calls} times in {DP_STEPS} compressed "
+          f"steps, none held to the plain recomputation")
+    leaves, elements, res_max, mean_max = psum.report
+    for label, losses in dp.items():
+        check(all(math.isfinite(x) for x in losses) and losses[-1] <
+              losses[0], f"DP {label} did not train: {losses}")
+    gap = abs(dp["compressed"][-1] - dp["exact"][-1])
+    check(gap < DP_TOL, f"compressed DP {dp['compressed'][-1]} vs exact "
+                        f"{dp['exact'][-1]}: gap {gap} >= {DP_TOL}")
+    gaps = [round(abs(a - b), 6) for a, b in zip(dp["compressed"],
+                                                 dp["exact"])]
+    return (f"python -m repro_torch.launch.train {' '.join(argv)}: "
+            f"uninterrupted losses {whole} in {t1 - t0:.3f}s; with "
+            f"--ckpt-every {LOOP_EVERY} --fail-at {LOOP_FAIL} it failed as "
+            f"injected after checkpointing {ckpt_bytes} B ({free} B free "
+            f"there) in {t2 - t1:.3f}s, and resumed from step {LOOP_FAIL} to "
+            f"{LOOP_STEPS} in {t3 - t2:.3f}s: losses {resumed}, within "
+            f"{LOOP_TOL} relative of the uninterrupted run (worst {worst:.3g}"
+            f", bit-equal {bit_equal}); compressed DP at P {DP_P} (B {DP_B} x "
+            f"S {DP_S}, {DP_STEPS} steps) losses {dp['compressed']}, exact "
+            f"{dp['exact']}: final gap {gap:.4f} < {DP_TOL} (gap by step "
+            f"{gaps}), both in {t5 - t4:.3f}s; compressed_psum call "
+            f"{DP_CHECK_CALL} bit-equal to the plain recomputation on all "
+            f"{leaves} leaves ({elements} per-worker gradient elements, max "
+            f"|residual| {res_max:.6g}, max |mean| {mean_max:.6g})")
+
+
+def band_mask(torch, sq, skv, causal, window, device):
+    """[Sq, Skv] boolean: the pairs the kernels' mask keeps."""
+    i = torch.arange(sq, device=device)[:, None]
+    j = torch.arange(skv, device=device)[None, :]
+    mask = j < skv
+    if causal or window is not None:
+        mask = mask & (i - j >= 0)
+        if window is not None:
+            mask = mask & (i - j < window)
+    return mask
+
+
 def band_pairs(sq: int, skv: int, causal: bool, window) -> int:
     """(query, key) pairs inside the mask: the work the inputs need."""
     if window is None and not causal:
@@ -1542,13 +2090,7 @@ def time_flash(torch, captured):
     # the library yardstick: scaled_dot_product_attention with the same band
     # mask, heads first, kv heads expanded (prepared outside the timing)
     import torch.nn.functional as F
-    i = torch.arange(Sq, device=q.device)[:, None]
-    j = torch.arange(Skv, device=q.device)[None, :]
-    mask = j < Skv
-    if causal or window is not None:
-        mask = mask & (i - j >= 0)
-        if window is not None:
-            mask = mask & (i - j < window)
+    mask = band_mask(torch, Sq, Skv, causal, window, q.device)
     qh = q.transpose(1, 2).contiguous()
     kh = k.repeat_interleave(H // Hkv, dim=2).transpose(1, 2).contiguous()
     vh = v.repeat_interleave(H // Hkv, dim=2).transpose(1, 2).contiguous()
@@ -1654,10 +2196,259 @@ def time_lru(torch, captured):
         "shape": {"a": list(a.shape), "dtype": str(a.dtype).split(".")[-1]}}
 
 
+def fwd_bwd_ms(torch, fn, inputs, g, iters=5, warmup=1):
+    """(forward + backward ms, forward ms) of ``fn`` on fresh leaf copies
+    of ``inputs`` with output gradient ``g``: a backward's time is their
+    difference."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+
+    def both():
+        for t in leaves:
+            t.grad = None
+        fn(*leaves).backward(g)
+
+    def fwd():
+        with torch.no_grad():
+            fn(*leaves)
+    return (median_ms(torch, both, iters=iters, warmup=warmup),
+            median_ms(torch, fwd, iters=iters, warmup=warmup))
+
+
+def unit_scaled(t):
+    """(t times the power of two that brings max |t| into [0.5, 1), that
+    power's exponent): exact in float32 and bfloat16."""
+    exponent = -math.frexp(float(t.abs().max()))[1]
+    return t * 2.0 ** exponent, exponent
+
+
+def dense_flash_bwd(torch, q, k, v, o, lse, do, causal, window):
+    """K3b's formula in dense float32 matrices, every head at once: P =
+    exp(scale q.k - lse) inside the mask, delta = rowsum(dO o), dV = P^T
+    dO, dS = P (dO v^T - delta), dK = scale dS^T q, dQ = scale dS k; dK and
+    dV summed over the heads of each kv group.  Returns (dq, dk, dv) in
+    float32, laid out as q, k, v."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv, Dv = v.shape[1], v.shape[2], v.shape[3]
+    grp, scale = H // Hkv, 1.0 / math.sqrt(D)
+
+    def heads(t, expand=1):
+        return t.float().transpose(1, 2).repeat_interleave(expand, dim=1)
+    qf, of, dof = heads(q), heads(o), heads(do)
+    kf, vf = heads(k, grp), heads(v, grp)
+    mask = band_mask(torch, Sq, Skv, causal, window, q.device)
+    p = torch.where(mask, torch.exp(scale * (qf @ kf.transpose(-1, -2))
+                                    - lse[..., None]), 0.0)
+    delta = (dof * of).sum(-1, keepdim=True)
+    dv = p.transpose(-1, -2) @ dof
+    ds = p * (dof @ vf.transpose(-1, -2) - delta)
+    del p
+    dq = scale * (ds @ kf)
+    dk = scale * (ds.transpose(-1, -2) @ qf)
+    del ds
+
+    def fold(t):
+        return t.view(B, Hkv, grp, Skv, -1).sum(2).transpose(1, 2)
+    return dq.transpose(1, 2), fold(dk), fold(dv)
+
+
+def shares(torch, got, want, rel, abs_of_max):
+    """Per tensor (dq, dk, dv): the readings of ``got`` against ``want``
+    under |got - want| <= rel |want| + abs_of_max max|want|."""
+    out = {}
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        a, w = a.float(), w.float()
+        check(bool(torch.isfinite(a).all()), f"non-finite {name}")
+        top = float(w.abs().max())
+        d = (a - w).abs()
+        out[name] = {
+            "max_abs_want": top, "max_abs_err": float(d.max()),
+            # the least absolute term, as a share of max |want|, that this
+            # run needs beside the relative one
+            "least_abs_of_max": float((d - rel * w.abs()).clamp(min=0).max())
+            / top,
+            "share": float((d / (rel * w.abs() + abs_of_max * top)).max())}
+    return out
+
+
+def captured_flash_bwd_check(torch, q, k, v, o, lse, g, causal, window):
+    """The bf16 backward kernel at lm_train's inputs with output gradient
+    ``g`` (already unit-scaled), held (1) to its formula in dense float32
+    and (2) through the autograd op to the plain version's autograd (see
+    FORMULA_BWD_REL and CAPTURED_BWD_REL), two calls bit-equal; zeros and
+    the formula with the band cut by BAND_CUT keys must break limit (1) in
+    every tensor.  Returns (readings, worst share, bit-equal)."""
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    kw = dict(causal=causal, window=window)
+    got = flash_kernel.flash_attention_bwd(q, k, v, o, lse, g, **kw)
+    again = flash_kernel.flash_attention_bwd(q, k, v, o, lse, g, **kw)
+    dense = dense_flash_bwd(torch, q, k, v, o, lse, g, causal, window)
+    formula = shares(torch, got, dense, FORMULA_BWD_REL, FLASH_GRAD_TOL)
+    for name, w in zip(("dq", "dk", "dv"), dense):
+        formula[name]["zeros_share"] = float(
+            (w.abs() / (FORMULA_BWD_REL * w.abs() + FLASH_GRAD_TOL
+                        * w.abs().max())).max())
+    equal = all(torch.equal(a, b) for a, b in zip(got, again))
+    del got, again
+    if window is not None and window > BAND_CUT:
+        cut = dense_flash_bwd(torch, q, k, v, o, lse, g, causal,
+                              window - BAND_CUT)
+        for name, r in shares(torch, cut, dense, FORMULA_BWD_REL,
+                              FLASH_GRAD_TOL).items():
+            formula[name]["band_cut_share"] = r["share"]
+        del cut
+    del dense
+    op, op_again = (grads_of(lambda *t: flash_ops.flash_attention(*t, **kw),
+                             (q, k, v), g) for _ in range(2))
+    plain = grads_of(lambda *t: flash_ops.flash_attention(
+        *t, block_q=64, block_k=32, backend="ref", **kw), (q, k, v), g)
+    autograd = shares(torch, op, plain, CAPTURED_BWD_REL,
+                      CAPTURED_BWD_ABS_OF_MAX)
+    equal = equal and all(torch.equal(a, b) for a, b in zip(op, op_again))
+    torch.cuda.synchronize()
+    for name, r in formula.items():
+        check(r["zeros_share"] > 1.0 and r.get("band_cut_share", 2.0) > 1.0,
+              f"flash backward at lm_train's inputs: limit (1) cannot fail "
+              f"in {name}: {r}")
+    share = max(r["share"] for r in (*formula.values(), *autograd.values()))
+    return {"formula": formula, "autograd": autograd}, share, equal
+
+
+def time_flash_bwd(torch, captured):
+    """The backward kernel at lm_train's first backward call (the last
+    local layer's q, k, v, o, lse and dO), that dO brought to a unit max by
+    a power of two: against its dense float32 formula, with the limit shown
+    able to fail there, and through autograd against the plain version's
+    (``captured_flash_bwd_check``), two calls bit-equal; then timed on the
+    dO as captured: the
+    kernel, the plain version's backward and
+    ``scaled_dot_product_attention``'s backward with the same band mask
+    (each forward + backward minus its forward), and the bound: the band's
+    backward operations, 2.5 x the forward's, at the bf16 peak."""
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    (q, k, v, o, lse, do), kw = captured
+    causal, window = kw["causal"], kw["window"]
+    g, exponent = unit_scaled(do)
+    readings, share, equal = captured_flash_bwd_check(
+        torch, q, k, v, o, lse, g, causal, window)
+    err = max(r["max_abs_err"] for part in readings.values()
+              for r in part.values())
+    check(share <= 1.0 and equal,
+          f"flash backward at lm_train's inputs {list(q.shape)}: kernel != "
+          f"plain (worst {share} x its limit, repeat bit-equal {equal}; "
+          f"{readings})")
+    print(f"[flash_attention_bwd_check] at lm_train's inputs, dO x 2^"
+          f"{exponent}: (1) against its formula in dense float32 within "
+          f"{FORMULA_BWD_REL} |dense| + {FLASH_GRAD_TOL} max|dense|, (2) "
+          f"through autograd against the plain version's within "
+          f"{CAPTURED_BWD_REL} |plain| + {CAPTURED_BWD_ABS_OF_MAX} "
+          f"max|plain|; worst {share:.4f} of its limit, repeat bit-equal; "
+          f"readings {json.dumps(readings)}", flush=True)
+    ms = median_ms(torch, lambda: flash_kernel.flash_attention_bwd(
+        q, k, v, o, lse, do, causal=causal, window=window))
+    both, fwd = fwd_bwd_ms(torch, lambda *t: flash_ops.flash_attention(
+        *t, causal=causal, window=window, backend="ref"), (q, k, v), do)
+    import torch.nn.functional as F
+    B, Sq, H, D = q.shape
+    Skv, Hkv, Dv = v.shape[1], v.shape[2], v.shape[3]
+    mask = band_mask(torch, Sq, Skv, causal, window, q.device)
+    heads = [q.transpose(1, 2).contiguous(),
+             k.repeat_interleave(H // Hkv, dim=2).transpose(1, 2).contiguous(),
+             v.repeat_interleave(H // Hkv, dim=2).transpose(1, 2).contiguous()]
+    lib_both, lib_fwd = fwd_bwd_ms(
+        torch, lambda *t: F.scaled_dot_product_attention(*t, attn_mask=mask),
+        heads, do.transpose(1, 2).contiguous(), iters=10, warmup=2)
+    pairs = band_pairs(Sq, Skv, causal, window)
+    ops_ = 2.5 * 2.0 * B * H * pairs * (D + Dv)
+    nbytes = (q.element_size() * 2 * (q.numel() + k.numel() + v.numel()
+                                      + do.numel()) + 4 * 2 * lse.numel())
+    dtype = str(q.dtype).split(".")[-1]
+    t_ops = ops_ / PEAK_OPS_PER_S[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return err, {"rule": "per tensor, dO scaled to a unit max: |kernel - "
+                         "dense formula| <= rel |dense| + abs_of_max "
+                         "max|dense|; |autograd op - plain autograd| <= "
+                         "op_rel |plain| + op_abs_of_max max|plain|",
+                 "rel": FORMULA_BWD_REL, "abs_of_max": FLASH_GRAD_TOL,
+                 "op_rel": CAPTURED_BWD_REL,
+                 "op_abs_of_max": CAPTURED_BWD_ABS_OF_MAX}, {
+        "max_err_over_limit": share, "repeat_equal": equal,
+        "do_scaled_by_pow2": exponent, "check_readings": readings,
+        "ms": ms, "kernel_ms": ms, "plain_ms": both - fwd,
+        "plain_fwd_bwd_ms": both, "plain_fwd_ms": fwd,
+        "library_ms": lib_both - lib_fwd, "library_fwd_bwd_ms": lib_both,
+        "library_fwd_ms": lib_fwd,
+        "library": "torch.nn.functional.scaled_dot_product_attention "
+                   "forward + backward with the band as a boolean mask, "
+                   "minus its forward",
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "band_flops": ops_, "bytes": nbytes, "note": NO_PALLAS,
+        "launches_per": "train step",
+        "shape": {"q": list(q.shape), "k": list(k.shape),
+                  "v": list(v.shape), "causal": causal, "window": window,
+                  "dtype": dtype}}
+
+
+def plain_lru_bwd(a, h, dh):
+    """The scan's gradient by the plain loop (``lru_scan/ref.py``) run
+    backwards: g = the scan of (a[t + 1], dh) from the end, db = g,
+    da = g h[t - 1]."""
+    import torch
+
+    from repro_torch.kernels.lru_scan import ref
+    coef = torch.zeros_like(a)
+    coef[:, :-1] = a[:, 1:]
+    g = ref.lru_scan(coef.flip(1), dh.flip(1)).flip(1)
+    prev = torch.zeros_like(h)
+    prev[:, 1:] = h[:, :-1]
+    return g * prev, g
+
+
+def time_lru_bwd(torch, captured):
+    """The reverse-scan kernel at lm_train's first backward call (the last
+    rglru layer's a, h and dh): against the plain loop run backwards within
+    1e-5 max|g| + 1e-5 |g|, two calls bit-equal, then timed beside the
+    bound: 5 B*S*W elements (a, h, dh read, da, db written) at 3.35 TB/s."""
+    from repro_torch.kernels.lru_scan import kernel as lru_kernel
+    (a, h, dh), _ = captured
+    got = lru_kernel.lru_scan_bwd(a, h, dh)
+    again = lru_kernel.lru_scan_bwd(a, h, dh)
+    want = plain_lru_bwd(a, h, dh)
+    err, share, equal = grad_err(
+        torch, got, again, want,
+        lambda w: LRU_TOL * w.abs().max() + LRU_TOL * w.abs())
+    check(share <= 1.0 and equal,
+          f"lru_scan backward at lm_train's inputs {list(a.shape)}: kernel "
+          f"!= plain (max abs err {err}, worst {share} x its limit, repeat "
+          f"bit-equal {equal})")
+    del got, again, want
+    ms = median_ms(torch, lambda: lru_kernel.lru_scan_bwd(a, h, dh))
+    plain = median_ms(torch, lambda: plain_lru_bwd(a, h, dh), iters=5,
+                      warmup=1)
+    nbytes = 5 * a.numel() * a.element_size()
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 3.0 * a.numel() / PEAK_SCALAR_OPS_PER_S * 1e3
+    return err, {"rule": "|kernel - plain| <= 1e-5 max|plain| + 1e-5 "
+                         "|plain|"}, {
+        "max_err_over_limit": share, "repeat_equal": equal,
+        "ms": ms, "kernel_ms": ms, "plain_ms": plain, "library_ms": None,
+        "library": "none: no single PyTorch call computes the recurrence "
+                   "or its gradient",
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "gb_per_s": nbytes / ms / 1e6, "note": NO_PALLAS,
+        "launches_per": "train step",
+        "shape": {"a": list(a.shape), "dtype": str(a.dtype).split(".")[-1]}}
+
+
 def lm_timing(torch, captured, case_errs):
     report = []
     for name, timer in (("flash_attention", time_flash),
-                        ("lru_scan", time_lru)):
+                        ("lru_scan", time_lru),
+                        ("flash_attention_bwd", time_flash_bwd),
+                        ("lru_scan_bwd", time_lru_bwd)):
         args, launches = captured[name]
         err, tol, timing = timer(torch, args)
         source, replaces = LM_KERNELS[name]
@@ -1667,7 +2458,14 @@ def lm_timing(torch, captured, case_errs):
                  "cases_max_abs_err": case_errs[name], "tolerance": tol}
         entry.update(timing)
         report.append(entry)
-    lru = report[-1]
+        if name.endswith("_bwd"):
+            print(f"[{name}_timing] at {entry['shape']}: {entry['ms']:.4f} "
+                  f"ms a call, bound {entry['bound_ms']:.4f} ms "
+                  f"({entry['bound_by']}), plain {entry['plain_ms']:.3f} ms"
+                  f", library {entry['library_ms']}, {launches} launches a "
+                  f"train step, worst error {entry['max_err_over_limit']:.3f}"
+                  f" of its limit, two calls bit-equal", flush=True)
+    lru = report[1]
     print(f"[lru_timing] lru_scan at {lru['shape']}: {lru['ms']:.4f} ms a "
           f"call, bound {lru['bound_ms']:.4f} ms, {lru['gb_per_s']:.1f} GB/s "
           f"({lru['peak_share']:.3f} of 3.35 TB/s); {lru['per_call_ms']:.4f} "
@@ -1720,7 +2518,7 @@ def main() -> int:
                       f"{torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    libs = [m.LIB for m in (kernel, flash_kernel, lru_kernel)]
+    libs = [kernel.LIB, flash_kernel.LIB, lru_kernel.LIB]
     _build.build_all(libs)
     phase("build", t0, "; ".join(
         f"{lib.source.relative_to(ROOT)} -> {lib.path.name}, nvcc "
@@ -1832,6 +2630,25 @@ def main() -> int:
     phase("lm_serve", t0, run_lm_serve(torch, args))
 
     t0 = time.perf_counter()
+    bwd_captured, train_stats = run_lm_train(torch, args, dev)
+    captured.update(bwd_captured)
+    phase("lm_train", t0, f"{TRAIN_STEPS} train steps at full width and "
+                          f"depth, B {TRAIN_B} x S {TRAIN_S} bf16, remat "
+                          f"full: finite losses {train_stats['losses']}, "
+                          f"falling; each step the exact launches of every "
+                          f"LM kernel and its backward, 0 plain-version "
+                          f"calls; {train_stats['step_ms']:.3f} ms a step, "
+                          f"{train_stats['tokens_per_s']:.1f} tokens/s, "
+                          f"device_peak_bytes "
+                          f"{train_stats['device_peak_bytes']}")
+
+    t0 = time.perf_counter()
+    phase("lm_grad", t0, run_lm_grad(torch, args, dev))
+
+    t0 = time.perf_counter()
+    phase("train_loop", t0, run_train_loop(torch, args, dev))
+
+    t0 = time.perf_counter()
     report += lm_timing(torch, captured, lm_errs)
     phase("lm_timing", t0, "flash_attention and lru_scan within tolerance "
                            "of their plain versions on the inputs captured "
@@ -1842,7 +2659,10 @@ def main() -> int:
                            "CUDA-event timings of one call after 3 warm-up "
                            "calls, lru_scan's per_call_ms median of 10 runs "
                            "of 20 back-to-back calls, plain versions median "
-                           "of 5")
+                           "of 5; the backward kernels likewise on lm_train's "
+                           "first backward inputs, their plain versions' and "
+                           "scaled_dot_product_attention's backward as "
+                           "forward + backward minus forward")
     phase("total", t_start, "wall time of the whole smoke, build included")
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -47,9 +47,10 @@ class ArchConfig:
     local_window: int = 2048
     lru_width: Optional[int] = None
     conv_width: int = 4
-    # numerics
+    # numerics / execution
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
+    remat: str = "full"           # none | full | dots (models.model.forward)
 
     # ---- derived ----
     def blocks(self) -> Tuple[Block, ...]:
@@ -83,6 +84,7 @@ class ArchConfig:
             local_window=16,
             param_dtype=torch.float32,
             compute_dtype=torch.float32,
+            remat="none",
         )
 
 

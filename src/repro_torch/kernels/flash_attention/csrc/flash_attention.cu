@@ -76,6 +76,13 @@
 //   computes 8 scores (one key against 8 rows, float4 reads, conflict-free
 //   with the D+4 row stride); 4 threads per row then take the online-softmax
 //   step; then every thread adds its rows x columns of P.V.
+//
+// Log-sum-exp out (for the backward, below): given a
+// non-null lse pointer, both kernels write lse[b, h, i] = m + log(l), the
+// log of row i's softmax denominator over its scaled scores, in float32, once
+// per row after the kv loop; a row with no key in its band (l = 0) gets
+// +inf, so every probability the backward recomputes from it is 0.  With a
+// null pointer nothing else changes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,6 +96,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // [B, H, Sq] log-sum-exp of each row's scaled scores, or null
   int64_t q_sb, q_ss, q_sh;  // strides in elements: batch, sequence, head
   int64_t k_sb, k_ss, k_sh;
   int64_t v_sb, v_ss, v_sh;
@@ -266,6 +274,11 @@ flash_attention_kernel(const Params p) {
   }
   __syncthreads();
 
+  if (p.lse != nullptr && tid < kBQ && q0 + tid < p.sq) {
+    const float l = sL[tid];
+    p.lse[(static_cast<int64_t>(blockIdx.y) * p.sq) + q0 + tid] =
+        l > 0.0f ? sM[tid] + logf(l) : __int_as_float(0x7f800000);  // +inf
+  }
 #pragma unroll
   for (int i = 0; i < kRpt; ++i) {
     const int r = oy + kTy * i;
@@ -570,6 +583,10 @@ flash_attention_mma_kernel(const Params p) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int row = r0 + g + 8 * r;
     if (row >= p.sq) continue;
+    if (p.lse != nullptr && t == 0) {
+      p.lse[(static_cast<int64_t>(blockIdx.y) * p.sq) + row] =
+          l[r] > 0.0f ? m[r] + logf(l[r]) : __int_as_float(0x7f800000);  // +inf
+    }
     const float inv = 1.0f / fmaxf(l[r], 1e-30f);
     __nv_bfloat16* orow = og + static_cast<int64_t>(row) * p.o_ss + 2 * t;
 #pragma unroll
@@ -628,7 +645,7 @@ cudaError_t dispatch(const Params& p, int batch, int d, int dv,
 }
 
 template <typename T>
-int entry(const void* q, const void* k, const void* v, void* o,
+int entry(const void* q, const void* k, const void* v, void* o, void* lse,
           int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
           int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
           int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh, int batch,
@@ -641,10 +658,10 @@ int entry(const void* q, const void* k, const void* v, void* o,
        reinterpret_cast<uintptr_t>(v)) % 16 == 0 &&
       (q_sb | q_ss | q_sh | k_sb | k_ss | k_sh | v_sb | v_ss | v_sh) %
               kPer16 == 0;
-  const Params p{q,    k,    v,    o,    q_sb,  q_ss,     q_sh,   k_sb,
-                 k_ss, k_sh, v_sb, v_ss, v_sh,  o_sb,     o_ss,   o_sh,
-                 heads, kv_heads, sq, skv, causal, window, scale,
-                 static_cast<int>(aligned)};
+  const Params p{q,    k,    v,    o,    static_cast<float*>(lse),
+                 q_sb, q_ss, q_sh, k_sb,  k_ss,     k_sh,   v_sb,
+                 v_ss, v_sh, o_sb, o_ss,  o_sh,     heads,  kv_heads,
+                 sq,   skv,  causal, window, scale, static_cast<int>(aligned)};
   return static_cast<int>(
       dispatch<T>(p, batch, d, dv, static_cast<cudaStream_t>(stream)));
 }
@@ -654,13 +671,13 @@ int entry(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 #define FLASH_ENTRY(NAME, T)                                                  \
-  int NAME(const void* q, const void* k, const void* v, void* o,             \
+  int NAME(const void* q, const void* k, const void* v, void* o, void* lse,  \
            int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,           \
            int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,           \
            int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh,           \
            int batch, int heads, int kv_heads, int sq, int skv, int d,       \
            int dv, int causal, int window, float scale, void* stream) {      \
-    return entry<T>(q, k, v, o, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,    \
+    return entry<T>(q, k, v, o, lse, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,    \
                     v_ss, v_sh, o_sb, o_ss, o_sh, batch, heads, kv_heads,    \
                     sq, skv, d, dv, causal, window, scale, stream);          \
   }
@@ -668,5 +685,514 @@ extern "C" {
 FLASH_ENTRY(flash_attention_float32, float)
 FLASH_ENTRY(flash_attention_bfloat16, __nv_bfloat16)
 #undef FLASH_ENTRY
+
+}  // extern "C"
+
+// === backward: flash_attention_bwd ==========================================
+//
+// The gradient of blocked attention, in the same library as the forward
+// (repro_torch/kernels/flash_attention/kernel.py, flash_attention_bwd;
+// counted as its own kernel, LAUNCHES["flash_attention_bwd"]).
+//
+// No TPU kernel to replace: the JAX package's flash_attention
+// (src/repro/kernels/flash_attention/kernel.py, flash_attention_pallas) has
+// no custom_vjp, and its training differentiates the jnp blocked version
+// (flash_attention/ref.py).  This is the backward of the forward
+// above, from what that forward keeps: its output o and the
+// float32 log-sum-exp lse [B, H, Sq] of each row's scaled scores.
+//
+// For q [B, Sq, H, D], k [B, Skv, Hkv, D], v [B, Skv, Hkv, Dv] (float32 or
+// bfloat16, read through their batch/sequence/head strides, the last
+// dimension contiguous), o and dO [B, Sq, H, Dv], with s = scale q.k^T,
+// P = exp(s - lse) inside the mask (0 outside), it computes
+//   delta_i = sum_c dO_ic o_ic
+//   dV_j   = sum over the heads of j's group and rows i of P_ij dO_i
+//   dS_ij  = P_ij (dO_i . v_j - delta_i)
+//   dK_j   = scale sum_i dS_ij q_i,       dQ_i = scale sum_j dS_ij k_j
+// into new contiguous dq, dk, dv of the input type, from float32 arithmetic
+// (the float32 instantiation never touches the tensor cores, so no TF32).
+// The mask is the forward's: keys j < Skv and, when causal, 0 <= i - j (and
+// i - j < window when a window is given; a window implies causal), positions
+// aligned at 0, Sq and Skv ragged.
+//
+// Three launches, no atomics, so two calls give the same bits:
+//   1. flash_bwd_delta_kernel: one warp per row, delta [B, H, Sq] float32.
+//   2. flash_bwd_dkdv_kernel: one block per (32-key tile, b * Hkv).  It keeps
+//      the tile's k and v in shared memory and its dK and dV accumulators in
+//      registers (at D = Dv = 256 a 32-key tile's two accumulators are 64 KB:
+//      64 floats a thread over 256 threads), and loops over the H / Hkv
+//      query heads of the group and over the 32-row q tiles that hold a row
+//      of the keys' band, recomputing P from lse; every element of dK and dV
+//      is written once, by the thread that summed it.
+//   3. flash_bwd_dq_kernel: one block per (32-row q tile, b * H), looping over
+//      the key tiles of the band (the forward's k_begin .. k_end).
+// A tile pair outside the band is never visited; inside it the mask decides
+// each pair, so a skipped tile can hold no pair the forward read.
+//
+// Bound: operations.  At the recurrentgemma-2b training shape (S 4 096, H 10,
+// Hkv 1, D = Dv = 256, window 2 048) the band's backward is 2.5x the forward's
+// operations (S and dP recomputed, dV, dK, dQ: five products of the forward's
+// two, halved where the forward shares), about 161 GFLOP: 0.163 ms at the
+// dense bf16 tensor-core peak (989 TFLOP/s).  This first version runs on the
+// CUDA cores in float32 for both input types, so it is bounded far above
+// that, by the float32 rate (67 TFLOP/s) and by shared-memory reads: each
+// score takes one float4 of k a thread against four broadcast float4 of q.
+// The tensor-core (mma.sync / wgmma) backward is a later step.
+//
+// Shared memory a block: 32-row tiles of q, k (D + 4 floats a row), dO, v
+// (Dv + 4), the 32 x 33 tiles of P and dS and 32 rows' lse and delta:
+// 141 824 bytes at D = Dv = 256 (one block an SM), 76 288 at 128.
+namespace {
+namespace bwd {  // apart from the forward's names
+
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kB = 32;         // rows of a q tile = keys of a kv tile
+constexpr int kPS = kB + 1;    // row stride of the P and dS tiles
+
+struct BwdParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;
+  const void* dout;
+  const float* lse;  // [B, H, Sq], from the forward
+  float* delta;      // [B, H, Sq], written by the first launch
+  void* dq;          // contiguous [B, Sq, H, D]
+  void* dk;          // contiguous [B, Skv, Hkv, D]
+  void* dv;          // contiguous [B, Skv, Hkv, Dv]
+  int64_t q_sb, q_ss, q_sh;  // strides in elements: batch, sequence, head
+  int64_t k_sb, k_ss, k_sh;
+  int64_t v_sb, v_ss, v_sh;
+  int64_t o_sb, o_ss, o_sh;
+  int64_t do_sb, do_ss, do_sh;
+  int batch, heads, kv_heads, sq, skv, causal, window;
+  float scale;
+};
+
+template <typename T>
+__device__ __forceinline__ float to_f(T x);
+template <>
+__device__ __forceinline__ float to_f<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even
+}
+
+// 1. delta_i = sum_c dO_ic o_ic, one warp per row (b, h, i), rows in the
+// order of lse; lanes stride over Dv, then a fixed butterfly
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_delta_kernel(const BwdParams p, int dv) {
+  const int lane = threadIdx.x % 32;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) +
+                      threadIdx.x / 32;
+  if (row >= static_cast<int64_t>(p.batch) * p.heads * p.sq) return;
+  const int i = static_cast<int>(row % p.sq);
+  const int64_t bh = row / p.sq;
+  const int h = static_cast<int>(bh % p.heads);
+  const int64_t b = bh / p.heads;
+  const T* o = static_cast<const T*>(p.o) + b * p.o_sb + i * p.o_ss +
+               h * p.o_sh;
+  const T* d = static_cast<const T*>(p.dout) + b * p.do_sb + i * p.do_ss +
+               h * p.do_sh;
+  float s = 0.0f;
+  for (int c = lane; c < dv; c += 32) s = fmaf(to_f<T>(o[c]), to_f<T>(d[c]), s);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  }
+  if (lane == 0) p.delta[row] = s;
+}
+
+// rows [pos0, pos0 + kB) x COLS of one head of a strided [.., S, .., COLS]
+// tensor into float32 shared memory of row stride LD; rows at or past
+// `limit` are zeros
+template <typename T, int COLS, int LD>
+__device__ __forceinline__ void load_rows(float* dst, const T* src,
+                                          int64_t stride, int pos0,
+                                          int limit) {
+  for (int i = threadIdx.x; i < kB * COLS; i += kThreads) {
+    const int r = i / COLS, c = i % COLS;
+    dst[r * LD + c] =
+        pos0 + r < limit
+            ? to_f<T>(src[static_cast<int64_t>(pos0 + r) * stride + c])
+            : 0.0f;
+  }
+}
+
+// is (query i, key j) inside the forward's mask?
+__device__ __forceinline__ bool in_band(const BwdParams& p, int i, int j) {
+  if (i >= p.sq || j >= p.skv) return false;
+  const int delta = i - j;
+  if ((p.causal != 0 || p.window > 0) && delta < 0) return false;
+  return p.window <= 0 || delta < p.window;
+}
+
+// P and dS of the q tile at q0 against the kv tile at k0, from shared q, k,
+// dO, v (row strides D + 4, Dv + 4), lse and delta, into sP and sS
+// [kB][kPS].  Thread (key kx, rows ry + 8 i): one float4 of k (of v) against
+// four broadcast float4 of q (of dO), as the float32 forward reads them.
+template <int D, int DV>
+__device__ __forceinline__ void probs_and_dscores(
+    const BwdParams& p, const float* sQ, const float* sK, const float* sdO,
+    const float* sV, const float* sLse, const float* sDelta, int q0, int k0,
+    float* sP, float* sS) {
+  constexpr int kQS = D + 4, kVS = DV + 4, kR = kB / 8;
+  const int kx = threadIdx.x % 32, ry = threadIdx.x / 32;
+  float s[kR], dp[kR];
+#pragma unroll
+  for (int i = 0; i < kR; ++i) s[i] = dp[i] = 0.0f;
+  const float4* krow = reinterpret_cast<const float4*>(sK + kx * kQS);
+#pragma unroll 4
+  for (int d4 = 0; d4 < D / 4; ++d4) {
+    const float4 kv = krow[d4];
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      const float4 qv =
+          reinterpret_cast<const float4*>(sQ + (ry + 8 * i) * kQS)[d4];
+      s[i] = fmaf(qv.x, kv.x, s[i]);
+      s[i] = fmaf(qv.y, kv.y, s[i]);
+      s[i] = fmaf(qv.z, kv.z, s[i]);
+      s[i] = fmaf(qv.w, kv.w, s[i]);
+    }
+  }
+  const float4* vrow = reinterpret_cast<const float4*>(sV + kx * kVS);
+#pragma unroll 4
+  for (int d4 = 0; d4 < DV / 4; ++d4) {
+    const float4 vv = vrow[d4];
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      const float4 gv =
+          reinterpret_cast<const float4*>(sdO + (ry + 8 * i) * kVS)[d4];
+      dp[i] = fmaf(gv.x, vv.x, dp[i]);
+      dp[i] = fmaf(gv.y, vv.y, dp[i]);
+      dp[i] = fmaf(gv.z, vv.z, dp[i]);
+      dp[i] = fmaf(gv.w, vv.w, dp[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kR; ++i) {
+    const int r = ry + 8 * i;
+    const float pr =
+        in_band(p, q0 + r, k0 + kx) ? expf(s[i] * p.scale - sLse[r]) : 0.0f;
+    sP[r * kPS + kx] = pr;
+    sS[r * kPS + kx] = pr * (dp[i] - sDelta[r]);
+  }
+}
+
+template <int D, int DV>
+constexpr size_t bwd_smem_bytes() {
+  return sizeof(float) * (2 * static_cast<size_t>(kB) * (D + 4) +
+                          2 * static_cast<size_t>(kB) * (DV + 4) +
+                          2 * static_cast<size_t>(kB) * kPS + 2 * kB);
+}
+
+// lse and delta of rows [q0, q0 + kB) of one (b, h); +inf and 0 past Sq
+__device__ __forceinline__ void load_row_stats(const BwdParams& p,
+                                               int64_t bh, int q0,
+                                               float* sLse, float* sDelta) {
+  if (threadIdx.x < kB) {
+    const int r = q0 + threadIdx.x;
+    const bool in = r < p.sq;
+    sLse[threadIdx.x] =
+        in ? p.lse[bh * p.sq + r] : __int_as_float(0x7f800000);  // +inf
+    sDelta[threadIdx.x] = in ? p.delta[bh * p.sq + r] : 0.0f;
+  }
+}
+
+// a (rows x cols) tile of accumulators split over the block: thread
+// (x, y) = (tid % TX, tid / TX) owns rows y * R .. y * R + R - 1 and
+// columns x + TX j
+template <int COLS>
+struct Split {
+  static constexpr int TX = COLS < 32 ? COLS : 32;
+  static constexpr int TY = kThreads / TX;
+  static constexpr int R = kB / TY;
+  static constexpr int C = COLS / TX;
+  static_assert(COLS % TX == 0 && kB % TY == 0, "accumulator layout");
+};
+
+// 2. dK, dV of one 32-key tile of one (b, kv head)
+template <typename T, int D, int DV>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_kernel(const BwdParams p) {
+  constexpr int kQS = D + 4, kVS = DV + 4;
+  using SK = Split<D>;
+  using SV = Split<DV>;
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;               // [kB][kQS]
+  float* sV = sK + kB * kQS;      // [kB][kVS]
+  float* sQ = sV + kB * kVS;      // [kB][kQS]
+  float* sdO = sQ + kB * kQS;     // [kB][kVS]
+  float* sP = sdO + kB * kVS;     // [kB][kPS]
+  float* sS = sP + kB * kPS;      // [kB][kPS]
+  float* sLse = sS + kB * kPS;    // [kB]
+  float* sDelta = sLse + kB;      // [kB]
+
+  const int k0 = blockIdx.x * kB;
+  const int64_t b = blockIdx.y / p.kv_heads;
+  const int hk = blockIdx.y % p.kv_heads;
+  const int group = p.heads / p.kv_heads;
+  load_rows<T, D, kQS>(sK, static_cast<const T*>(p.k) + b * p.k_sb +
+                               hk * p.k_sh, p.k_ss, k0, p.skv);
+  load_rows<T, DV, kVS>(sV, static_cast<const T*>(p.v) + b * p.v_sb +
+                                hk * p.v_sh, p.v_ss, k0, p.skv);
+
+  const int kx = threadIdx.x % SK::TX, ky = threadIdx.x / SK::TX;
+  const int vx = threadIdx.x % SV::TX, vy = threadIdx.x / SV::TX;
+  float dk[SK::R][SK::C], dv[SV::R][SV::C];
+#pragma unroll
+  for (int r = 0; r < SK::R; ++r)
+#pragma unroll
+    for (int c = 0; c < SK::C; ++c) dk[r][c] = 0.0f;
+#pragma unroll
+  for (int r = 0; r < SV::R; ++r)
+#pragma unroll
+    for (int c = 0; c < SV::C; ++c) dv[r][c] = 0.0f;
+
+  // the q rows whose band holds a key of this tile: from k0 when causal, to
+  // the last key's window end
+  const bool causal = p.causal != 0 || p.window > 0;
+  const int q_begin = causal ? k0 : 0;
+  const int q_end =
+      p.window > 0 ? min(p.sq, k0 + kB - 1 + p.window) : p.sq;
+
+  for (int hh = 0; hh < group; ++hh) {
+    const int h = hk * group + hh;
+    const int64_t bh = b * p.heads + h;
+    const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+    const T* dog = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+    for (int q0 = q_begin; q0 < q_end; q0 += kB) {
+      __syncthreads();  // the last tile's readers are done; k, v are ready
+      load_rows<T, D, kQS>(sQ, qg, p.q_ss, q0, p.sq);
+      load_rows<T, DV, kVS>(sdO, dog, p.do_ss, q0, p.sq);
+      load_row_stats(p, bh, q0, sLse, sDelta);
+      __syncthreads();
+      probs_and_dscores<D, DV>(p, sQ, sK, sdO, sV, sLse, sDelta, q0, k0, sP,
+                               sS);
+      __syncthreads();
+      // dV += P^T dO, dK += dS^T q, row by row of the q tile
+#pragma unroll 2
+      for (int r = 0; r < kB; ++r) {
+        float g[SV::C];
+#pragma unroll
+        for (int c = 0; c < SV::C; ++c) g[c] = sdO[r * kVS + vx + SV::TX * c];
+#pragma unroll
+        for (int j = 0; j < SV::R; ++j) {
+          const float pr = sP[r * kPS + vy * SV::R + j];
+#pragma unroll
+          for (int c = 0; c < SV::C; ++c) dv[j][c] = fmaf(pr, g[c], dv[j][c]);
+        }
+        float qv[SK::C];
+#pragma unroll
+        for (int c = 0; c < SK::C; ++c) qv[c] = sQ[r * kQS + kx + SK::TX * c];
+#pragma unroll
+        for (int j = 0; j < SK::R; ++j) {
+          const float ds = sS[r * kPS + ky * SK::R + j];
+#pragma unroll
+          for (int c = 0; c < SK::C; ++c) dk[j][c] = fmaf(ds, qv[c], dk[j][c]);
+        }
+      }
+    }
+  }
+
+  // contiguous [B, Skv, Hkv, D] and [B, Skv, Hkv, Dv]
+  T* dkg = static_cast<T*>(p.dk);
+  T* dvg = static_cast<T*>(p.dv);
+#pragma unroll
+  for (int j = 0; j < SK::R; ++j) {
+    const int key = k0 + ky * SK::R + j;
+    if (key >= p.skv) continue;
+    const int64_t row = (b * p.skv + key) * p.kv_heads + hk;
+#pragma unroll
+    for (int c = 0; c < SK::C; ++c) {
+      dkg[row * D + kx + SK::TX * c] = from_f<T>(dk[j][c] * p.scale);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < SV::R; ++j) {
+    const int key = k0 + vy * SV::R + j;
+    if (key >= p.skv) continue;
+    const int64_t row = (b * p.skv + key) * p.kv_heads + hk;
+#pragma unroll
+    for (int c = 0; c < SV::C; ++c) {
+      dvg[row * DV + vx + SV::TX * c] = from_f<T>(dv[j][c]);
+    }
+  }
+}
+
+// 3. dQ of one 32-row q tile of one (b, head)
+template <typename T, int D, int DV>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const BwdParams p) {
+  constexpr int kQS = D + 4, kVS = DV + 4;
+  using SQ = Split<D>;
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;               // [kB][kQS]
+  float* sdO = sQ + kB * kQS;     // [kB][kVS]
+  float* sK = sdO + kB * kVS;     // [kB][kQS]
+  float* sV = sK + kB * kQS;      // [kB][kVS]
+  float* sP = sV + kB * kVS;      // [kB][kPS]
+  float* sS = sP + kB * kPS;      // [kB][kPS]
+  float* sLse = sS + kB * kPS;    // [kB]
+  float* sDelta = sLse + kB;      // [kB]
+
+  const int q0 = blockIdx.x * kB;
+  const int64_t b = blockIdx.y / p.heads;
+  const int h = blockIdx.y % p.heads;
+  const int hk = h / (p.heads / p.kv_heads);
+  const int64_t bh = b * p.heads + h;
+  load_rows<T, D, kQS>(sQ, static_cast<const T*>(p.q) + b * p.q_sb +
+                               h * p.q_sh, p.q_ss, q0, p.sq);
+  load_rows<T, DV, kVS>(sdO, static_cast<const T*>(p.dout) + b * p.do_sb +
+                                 h * p.do_sh, p.do_ss, q0, p.sq);
+  load_row_stats(p, bh, q0, sLse, sDelta);
+  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  const int qx = threadIdx.x % SQ::TX, qy = threadIdx.x / SQ::TX;
+  float acc[SQ::R][SQ::C];
+#pragma unroll
+  for (int r = 0; r < SQ::R; ++r)
+#pragma unroll
+    for (int c = 0; c < SQ::C; ++c) acc[r][c] = 0.0f;
+
+  // the kv tiles that hold a key of this q tile's band (the forward's)
+  const bool causal = p.causal != 0 || p.window > 0;
+  const int q_last = min(q0 + kB, p.sq) - 1;
+  const int k_end = causal ? min(p.skv, q_last + 1) : p.skv;
+  const int k_begin =
+      (p.window > 0 ? max(0, q0 - p.window + 1) : 0) / kB * kB;
+
+  for (int k0 = k_begin; k0 < k_end; k0 += kB) {
+    __syncthreads();  // the last tile's readers are done; q, dO are ready
+    load_rows<T, D, kQS>(sK, kg, p.k_ss, k0, p.skv);
+    load_rows<T, DV, kVS>(sV, vg, p.v_ss, k0, p.skv);
+    __syncthreads();
+    probs_and_dscores<D, DV>(p, sQ, sK, sdO, sV, sLse, sDelta, q0, k0, sP,
+                             sS);
+    __syncthreads();
+    // dQ += dS k, key by key of the kv tile
+#pragma unroll 2
+    for (int j = 0; j < kB; ++j) {
+      float kv[SQ::C];
+#pragma unroll
+      for (int c = 0; c < SQ::C; ++c) kv[c] = sK[j * kQS + qx + SQ::TX * c];
+#pragma unroll
+      for (int r = 0; r < SQ::R; ++r) {
+        const float ds = sS[(qy * SQ::R + r) * kPS + j];
+#pragma unroll
+        for (int c = 0; c < SQ::C; ++c) acc[r][c] = fmaf(ds, kv[c], acc[r][c]);
+      }
+    }
+  }
+
+  T* dqg = static_cast<T*>(p.dq);  // contiguous [B, Sq, H, D]
+#pragma unroll
+  for (int r = 0; r < SQ::R; ++r) {
+    const int row = q0 + qy * SQ::R + r;
+    if (row >= p.sq) continue;
+    const int64_t at = ((b * p.sq + row) * p.heads + h) * D;
+#pragma unroll
+    for (int c = 0; c < SQ::C; ++c) {
+      dqg[at + qx + SQ::TX * c] = from_f<T>(acc[r][c] * p.scale);
+    }
+  }
+}
+
+// --- launch ------------------------------------------------------------------
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  // above 48 KB a launch is refused unless the kernel opts in
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <typename T, int D, int DV>
+cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
+  const int64_t rows = static_cast<int64_t>(p.batch) * p.heads * p.sq;
+  const int64_t warps = kThreads / 32;
+  if (rows > 0) {
+    flash_bwd_delta_kernel<T>
+        <<<static_cast<unsigned>((rows + warps - 1) / warps), kThreads, 0,
+           stream>>>(p, DV);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const size_t bytes = bwd_smem_bytes<D, DV>();
+  cudaError_t err = allow_smem(flash_bwd_dkdv_kernel<T, D, DV>, bytes);
+  if (err == cudaSuccess) err = allow_smem(flash_bwd_dq_kernel<T, D, DV>, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 kv_grid((p.skv + kB - 1) / kB, p.batch * p.kv_heads);
+  flash_bwd_dkdv_kernel<T, D, DV><<<kv_grid, kThreads, bytes, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 q_grid((p.sq + kB - 1) / kB, p.batch * p.heads);
+  flash_bwd_dq_kernel<T, D, DV><<<q_grid, kThreads, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const BwdParams& p, int d, int dv, cudaStream_t s) {
+#define FLASH_BWD_CASE(D_, DV_) \
+  if (d == D_ && dv == DV_) return launch<T, D_, DV_>(p, s);
+  FLASH_BWD_CASE(16, 16)
+  FLASH_BWD_CASE(32, 32)
+  FLASH_BWD_CASE(32, 16)
+  FLASH_BWD_CASE(64, 64)
+  FLASH_BWD_CASE(64, 32)
+  FLASH_BWD_CASE(128, 128)
+  FLASH_BWD_CASE(128, 64)
+  FLASH_BWD_CASE(256, 256)
+  FLASH_BWD_CASE(256, 128)
+#undef FLASH_BWD_CASE
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace bwd
+}  // namespace
+
+extern "C" {
+
+// q, k, v, o, dout (strided, last dimension contiguous), lse [B, H, Sq] and
+// the delta scratch [B, H, Sq] (float32), dq, dk, dv (contiguous, written),
+// then the five tensors' batch / sequence / head strides in elements
+#define FLASH_BWD_ENTRY(NAME, T)                                              \
+  int NAME(const void* q, const void* k, const void* v, const void* o,       \
+           const void* dout, const void* lse, void* delta, void* d_q,        \
+           void* d_k, void* d_v, int64_t q_sb, int64_t q_ss, int64_t q_sh,   \
+           int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,           \
+           int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss,           \
+           int64_t o_sh, int64_t do_sb, int64_t do_ss, int64_t do_sh,        \
+           int batch, int heads, int kv_heads, int sq, int skv, int d,       \
+           int dv, int causal, int window, float scale, void* stream) {      \
+    const bwd::BwdParams p{q, k, v, o, dout, static_cast<const float*>(lse),  \
+                      static_cast<float*>(delta), d_q, d_k, d_v,             \
+                      q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,  \
+                      o_sb, o_ss, o_sh, do_sb, do_ss, do_sh, batch, heads,   \
+                      kv_heads, sq, skv, causal, window, scale};             \
+    return static_cast<int>(                                                  \
+        bwd::dispatch<T>(p, d, dv, static_cast<cudaStream_t>(stream)));       \
+  }
+
+FLASH_BWD_ENTRY(flash_attention_bwd_float32, float)
+FLASH_BWD_ENTRY(flash_attention_bwd_bfloat16, __nv_bfloat16)
+#undef FLASH_BWD_ENTRY
 
 }  // extern "C"

@@ -60,6 +60,21 @@
 // written once by the caller's fill and once here, read back mostly from
 // L2).  What is left above the bound is the block's chain of latencies
 // (ticket, copies, two barriers, the look-back's round trip to L2).
+//
+// The gradient (lru_scan_bwd_kernel; no TPU kernel to replace: the JAX
+// package's training differentiates its associative scan).  Given h from
+// the forward and dh, with
+//   g_t = dh_t + a_{t+1} g_{t+1},   g_{S-1} = dh_{S-1},
+// it writes db_t = g_t and da_t = g_t h_{t-1} (h_{-1} = 0), rounded to the
+// input type, from a float32 carry.  That is the same scan run from the end,
+// with the coefficient at t being a_{t+1}, read by index (a + (t+1) W: no
+// shifted copy; zero past S), so it reuses the forward's design mirrored:
+// tickets map to chunks from the last one, the look-back runs toward higher
+// t (after the last chunk: the zero carry), pieces aggregate from their last
+// step, and the recompute runs each piece backwards from its carry-in, where
+// h_{t-1} is read and da fused into the store.  One launch reads a, h and dh
+// and writes da and db: bound 5 * B*S*W * sizeof(T) bytes at 3.35 TB/s.
+// Deterministic for the same reason as the forward.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -361,6 +376,197 @@ lru_scan_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
 }
 
+// the gradient: chunks walked from the end, coefficient a[t + 1] at step t
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+lru_scan_bwd_kernel(const T* __restrict__ a, const T* __restrict__ h,
+                    const T* __restrict__ dh, T* __restrict__ da,
+                    T* __restrict__ db, int64_t batch, int64_t seq,
+                    int64_t width, int64_t chunks, int tiles, int vec_ok,
+                    unsigned* __restrict__ ticket,
+                    unsigned long long* __restrict__ agg,
+                    unsigned* __restrict__ inclusive) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int kTile = kGroups * V;
+  static_assert(kTile <= kThreads, "a thread combines each channel");
+  __shared__ unsigned s_ticket;
+  __shared__ float sA[kSubs][kTile], sH[kSubs][kTile], s_carry[kTile];
+  // this thread's 16 bytes of a[t + 1] (then dh[t]) at step t0 + i:
+  // [i * kThreads + tid]
+  extern __shared__ uint4 s_tile[];
+  uint4* const s_a = s_tile + threadIdx.x;
+  uint4* const s_d = s_tile + kSub * kThreads + threadIdx.x;
+
+  const int group = threadIdx.x % kGroups, sub = threadIdx.x / kGroups;
+  if (threadIdx.x == 0) s_ticket = atomicAdd(ticket, 1u) + 1u;
+  __syncthreads();
+  const int64_t rows = batch * tiles;
+  const int64_t chunk = chunks - 1 - s_ticket / rows;  // the last one first
+  const int64_t row = s_ticket % rows;
+  const int64_t bi = row / tiles;
+  const int64_t tile = row % tiles;
+
+  // 1. a[t + 1] and dh[t] for this thread's 8 steps into shared memory
+  const int64_t c0 = tile * kTile + group * V;
+  const int64_t t0 = chunk * kChunk + sub * kSub;
+  const int64_t rowbase = bi * seq * width + c0;
+#pragma unroll
+  for (int i = 0; i < kSub; ++i) {
+    const int64_t t = t0 + i;
+    const bool in_a = t + 1 < seq && c0 < width;
+    const bool in_d = t < seq && c0 < width;
+    const int64_t off_a = rowbase + (t + 1) * width;
+    const int64_t off_d = rowbase + t * width;
+    if (vec_ok) {  // past the edges: zeros
+      cp_async16(smem_addr(s_a + i * kThreads), in_a ? a + off_a : a,
+                 in_a ? 16 : 0);
+      cp_async16(smem_addr(s_d + i * kThreads), in_d ? dh + off_d : dh,
+                 in_d ? 16 : 0);
+    } else {
+      s_a[i * kThreads] = in_a ? load_scalar<T>(a + off_a, width - c0)
+                               : make_uint4(0, 0, 0, 0);
+      s_d[i * kThreads] = in_d ? load_scalar<T>(dh + off_d, width - c0)
+                               : make_uint4(0, 0, 0, 0);
+    }
+  }
+  cp_async_wait_all();
+
+  // 2. zero-carry aggregate of each piece from its last step: (prod of its
+  // coefficients, g at its first step)
+  {
+    float pa[V], pg[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) pa[v] = 1.0f, pg[v] = 0.0f;
+#pragma unroll
+    for (int i = kSub - 1; i >= 0; --i) {
+      const uint4 ra = s_a[i * kThreads], rd = s_d[i * kThreads];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const float av = unpack<T>(ra, v);
+        pa[v] = pa[v] * av;
+        pg[v] = fmaf(av, pg[v], unpack<T>(rd, v));
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      sA[sub][group * V + v] = pa[v];
+      sH[sub][group * V + v] = pg[v];
+    }
+  }
+  __syncthreads();
+
+  // 3-5. per channel: the tile's aggregate (sub-chunks from the last),
+  // published; the look-back toward later chunks; the inclusive carry (g at
+  // the chunk's first step), published
+  const int ch = threadIdx.x;
+  const int64_t gc = tile * kTile + ch;
+  if (ch < kTile) {
+    float carry = 0.0f;
+    if (gc < width) {
+      float tA = 1.0f, tH = 0.0f;
+#pragma unroll
+      for (int s = kSubs - 1; s >= 0; --s) {
+        tA = tA * sA[s][ch];
+        tH = fmaf(sA[s][ch], tH, sH[s][ch]);
+      }
+      const int64_t cstride = batch * width;  // between chunks
+      const int64_t at = chunk * cstride + bi * width + gc;
+      st_relaxed(agg + at, (static_cast<unsigned long long>(ready(tH)) << 32)
+                               | ready(tA));
+      unsigned long long wa[kLook];
+      unsigned wp[kLook];
+      int k;
+      for (;;) {
+#pragma unroll
+        for (int u = 0; u < kLook; ++u) {
+          wa[u] = ~0ull;
+          wp[u] = 0u;  // the zero carry after the sequence
+          if (chunk + 1 + u < chunks) {
+            wa[u] = ld_relaxed(agg + at + (u + 1) * cstride);
+            wp[u] = ld_relaxed(inclusive + at + (u + 1) * cstride);
+          }
+        }
+        k = kLook;
+        bool nearer_ready = true, found = false;
+#pragma unroll
+        for (int u = 0; u < kLook; ++u) {
+          if (!found && wp[u] != kNotReady) {
+            k = u;
+            found = true;
+          }
+          if (!found) nearer_ready = nearer_ready && wa[u] != ~0ull;
+        }
+        if (found && nearer_ready) break;
+        __nanosleep(32);
+      }
+#pragma unroll
+      for (int u = kLook - 1; u >= 0; --u) {
+        if (u == k) carry = __uint_as_float(wp[u]);
+        if (u < k) {
+          carry = fmaf(__uint_as_float(static_cast<unsigned>(wa[u])), carry,
+                       __uint_as_float(static_cast<unsigned>(wa[u] >> 32)));
+        }
+      }
+      st_relaxed(inclusive + at, ready(fmaf(tA, carry, tH)));
+    }
+    s_carry[ch] = carry;
+  }
+  __syncthreads();
+
+  // 6. this piece's carry-in (g at the step after it), then the loop again
+  // from its last step, with da = g h[t - 1] fused into the store
+  float p[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) p[v] = s_carry[group * V + v];
+  for (int s = kSubs - 1; s > sub; --s) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      p[v] = fmaf(sA[s][group * V + v], p[v], sH[s][group * V + v]);
+    }
+  }
+#pragma unroll
+  for (int i = kSub - 1; i >= 0; --i) {
+    const int64_t t = t0 + i;
+    if (t >= seq || c0 >= width) {  // g stays 0 past S: nothing to store
+      continue;
+    }
+    const uint4 ra = s_a[i * kThreads], rd = s_d[i * kThreads];
+    const int64_t off = rowbase + t * width;
+    uint4 rh = make_uint4(0, 0, 0, 0);  // h[-1] = 0
+    if (t > 0) {
+      rh = vec_ok ? *reinterpret_cast<const uint4*>(h + off - width)
+                  : load_scalar<T>(h + off - width, width - c0);
+    }
+    T gout[V], aout[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      p[v] = fmaf(unpack<T>(ra, v), p[v], unpack<T>(rd, v));
+      gout[v] = from_float<T>(p[v]);
+      aout[v] = from_float<T>(p[v] * unpack<T>(rh, v));
+    }
+    if (vec_ok) {
+      unsigned wg[4] = {0, 0, 0, 0}, wa2[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        pack<T>(wg, v, gout[v]);
+        pack<T>(wa2, v, aout[v]);
+      }
+      __stcs(reinterpret_cast<uint4*>(db + off),
+             make_uint4(wg[0], wg[1], wg[2], wg[3]));
+      __stcs(reinterpret_cast<uint4*>(da + off),
+             make_uint4(wa2[0], wa2[1], wa2[2], wa2[3]));
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        if (c0 + v < width) {
+          db[off + v] = gout[v];
+          da[off + v] = aout[v];
+        }
+      }
+    }
+  }
+}
+
 inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -419,6 +625,42 @@ cudaError_t launch(const void* a, const void* b, void* h, int64_t batch,
   return cudaGetLastError();
 }
 
+// the gradient: the forward's geometry and scratch layout
+template <typename T>
+cudaError_t launch_bwd(const void* a, const void* h, const void* dh,
+                       void* da, void* db, int64_t batch, int64_t seq,
+                       int64_t width, void* scratch, int64_t scratch_words,
+                       void* stream) {
+  constexpr int V = 16 / sizeof(T);
+  const Geometry g = geometry<T>(batch, seq, width);
+  const int64_t n = g.chunks * batch * width;
+  if (g.blocks > INT32_MAX || scratch_words < g.words ||
+      reinterpret_cast<uintptr_t>(scratch) % 8 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  unsigned* words = static_cast<unsigned*>(scratch);
+  const int vec_ok = width % V == 0 && aligned16(a) && aligned16(h) &&
+                     aligned16(dh) && aligned16(da) && aligned16(db);
+  cudaError_t err = cudaFuncSetAttribute(
+      lru_scan_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kTileBytes);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(lru_scan_bwd_kernel<T>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
+  if (err != cudaSuccess) return err;
+  lru_scan_bwd_kernel<T>
+      <<<static_cast<unsigned>(g.blocks), kThreads, kTileBytes,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(a), static_cast<const T*>(h),
+          static_cast<const T*>(dh), static_cast<T*>(da), static_cast<T*>(db),
+          batch, seq, width, g.chunks, static_cast<int>(g.tiles), vec_ok,
+          words, reinterpret_cast<unsigned long long*>(words + 2),
+          words + 2 + 2 * n);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -435,6 +677,25 @@ int lru_scan_bfloat16(const void* a, const void* b, void* h, int64_t batch,
                       int64_t scratch_words, void* stream) {
   return static_cast<int>(launch<__nv_bfloat16>(
       a, b, h, batch, seq, width, scratch, scratch_words, stream));
+}
+
+// The gradient of the scan: da, db from a, h (the forward's output) and dh,
+// all [batch, seq, width] of one type; the scratch as the forward's.
+int lru_scan_bwd_float32(const void* a, const void* h, const void* dh,
+                         void* da, void* db, int64_t batch, int64_t seq,
+                         int64_t width, void* scratch, int64_t scratch_words,
+                         void* stream) {
+  return static_cast<int>(launch_bwd<float>(a, h, dh, da, db, batch, seq,
+                                            width, scratch, scratch_words,
+                                            stream));
+}
+
+int lru_scan_bwd_bfloat16(const void* a, const void* h, const void* dh,
+                          void* da, void* db, int64_t batch, int64_t seq,
+                          int64_t width, void* scratch, int64_t scratch_words,
+                          void* stream) {
+  return static_cast<int>(launch_bwd<__nv_bfloat16>(
+      a, h, dh, da, db, batch, seq, width, scratch, scratch_words, stream));
 }
 
 // The geometry one launch takes for elements of elem_bytes (4: float32, 2:

@@ -6,7 +6,13 @@ it with ``ctypes``.  When ``nvcc`` is missing or the build fails, a CUDA call
 raises: there is no fallback.  Each exported C launcher runs on
 PyTorch's current stream, never synchronises, and returns
 ``cudaGetLastError()``; ``LIB.launch`` raises on anything but 0.
-``LAUNCHES`` moves only where the kernel is launched: one per call.
+``LAUNCHES["lru_scan"]`` moves only where the kernel is launched: one per
+call.
+
+The gradient, :func:`lru_scan_bwd`, is a second kernel of the same source,
+the same scan run from the end (``g_t = dh_t + a_{t+1} g_{t+1}``, then
+``db = g`` and ``da_t = g_t h_{t-1}``), with the forward's geometry and
+scratch; ``LAUNCHES["lru_scan_bwd"]`` counts its launches.
 
 Design (the source's header has the details): a single-pass chunked scan,
 parallel over S as well as over channels and batch.  One block takes a chunk
@@ -48,14 +54,21 @@ NAME = "lru_scan"
 #: input dtype -> C launcher
 INSTANTIATIONS = {torch.float32: "lru_scan_float32",
                   torch.bfloat16: "lru_scan_bfloat16"}
+BWD_NAME = "lru_scan_bwd"
+BWD_INSTANTIATIONS = {torch.float32: "lru_scan_bwd_float32",
+                      torch.bfloat16: "lru_scan_bwd_bfloat16"}
 GEOMETRY = "lru_scan_geometry"
 #: launchers: a, b, h, batch, seq, width, scratch, scratch words, stream;
-#: the geometry: element bytes, batch, seq, width, int64 out[5]
+#: the backward's: a, h, dh, da, db, batch, seq, width, scratch, scratch
+#: words, stream; the geometry: element bytes, batch, seq, width, int64
+#: out[5]
 SYMBOLS = {**{s: (PTR, PTR, PTR, I64, I64, I64, PTR, I64, PTR)
               for s in INSTANTIATIONS.values()},
+           **{s: (PTR,) * 5 + (I64, I64, I64, PTR, I64, PTR)
+              for s in BWD_INSTANTIATIONS.values()},
            GEOMETRY: (I64, I64, I64, I64, PTR)}
 
-LIB = _build.Library(NAME, SOURCE, SYMBOLS)
+LIB = _build.Library(NAME, SOURCE, SYMBOLS, kernels=(NAME, BWD_NAME))
 #: launches since the last ``LIB.reset_launches()``
 LAUNCHES = LIB.launches
 
@@ -111,3 +124,36 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     LIB.launch(INSTANTIATIONS[a.dtype], NAME, a.device, a.data_ptr(),
                b.data_ptr(), h.data_ptr(), B, S, W, scratch.data_ptr(), n)
     return h
+
+
+def lru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor):
+    """The gradient of :func:`lru_scan` on the card: from ``a``, the forward's
+    output ``h`` and ``dh`` (contiguous CUDA tensors ``[B, S, W]`` of one
+    dtype on one device) -> ``(da, db)`` in that dtype, carry in float32.
+    Raises on anything the kernel does not take."""
+    tensors = (a, h, dh)
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError(f"lru_scan_bwd kernel needs CUDA tensors, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if not (a.device == h.device == dh.device):
+        raise ValueError("a, h and dh must be on one device")
+    if not (a.dtype == h.dtype == dh.dtype) or a.dtype not in \
+            BWD_INSTANTIATIONS:
+        raise TypeError(f"lru_scan_bwd takes a, h, dh of one dtype in "
+                        f"{sorted(map(str, BWD_INSTANTIATIONS))}, got "
+                        f"{a.dtype}, {h.dtype}, {dh.dtype}")
+    if a.dim() != 3 or not (a.shape == h.shape == dh.shape):
+        raise ValueError(f"need a, h, dh [B, S, W] of one shape, got "
+                         f"{[tuple(t.shape) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("a, h and dh must be contiguous")
+    B, S, W = a.shape
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    if a.numel() == 0:
+        return da, db
+    n = geometry(a.dtype, B, S, W)["scratch_words"]
+    scratch = torch.full((n,), -1, dtype=torch.int32, device=a.device)
+    LIB.launch(BWD_INSTANTIATIONS[a.dtype], BWD_NAME, a.device, a.data_ptr(),
+               h.data_ptr(), dh.data_ptr(), da.data_ptr(), db.data_ptr(), B,
+               S, W, scratch.data_ptr(), n)
+    return da, db

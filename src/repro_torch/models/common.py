@@ -17,7 +17,8 @@ from torch import nn
 
 
 def param(tensor: torch.Tensor) -> nn.Parameter:
-    # inference only: the port has no backward kernels yet (ROADMAP Q9b)
+    # frozen until a trainer asks for gradients (train.step.init_train_state
+    # calls ``requires_grad_()``), so serving builds no autograd graph
     return nn.Parameter(tensor, requires_grad=False)
 
 
@@ -132,7 +133,10 @@ class Embed(nn.Module):
 
 
 def embed_tokens(tokens, p: Embed, cfg):
-    x = p.table[tokens].to(cfg.compute_dtype)
+    # a gather, as the reference's table[tokens]; F.embedding's backward sums
+    # the rows of repeated tokens in a fixed order (indexing's backward
+    # accumulates with threads, in an order that changes from run to run)
+    x = F.embedding(tokens, p.table).to(cfg.compute_dtype)
     if cfg.embed_scale:
         # sqrt(d_model) rounded to the compute dtype first, as the
         # reference does: in bf16, sqrt(2560) = 50.596 becomes 50.5
@@ -144,7 +148,8 @@ def embed_tokens(tokens, p: Embed, cfg):
 def lm_logits(x, embed_p: Optional[Embed], head_p, cfg):
     """Logits in float32.  The tied product runs in the compute dtype, then
     the softcap in float32 — in place on the float32 copy, which at the
-    published vocab is the largest tensor of a prefill."""
+    published vocab is the largest tensor of a prefill, unless autograd
+    records the graph (training), which needs tanh's output intact."""
     if cfg.tie_embeddings:
         logits = x @ embed_p.table.to(cfg.compute_dtype).T
     else:
@@ -152,5 +157,8 @@ def lm_logits(x, embed_p: Optional[Embed], head_p, cfg):
     logits = logits.float()
     if cfg.logit_softcap is not None:
         cap = cfg.logit_softcap
-        logits.div_(cap).tanh_().mul_(cap)
+        if logits.requires_grad:
+            logits = torch.tanh(logits / cap) * cap
+        else:
+            logits.div_(cap).tanh_().mul_(cap)
     return logits

@@ -6,6 +6,12 @@ leading reps axis (``params["body"]``); the port keeps one ``LayerBlock``
 per layer, so ``body`` is unstacked: unit block ``i`` of rep ``r`` is layer
 ``len(prefix) + r * len(unit) + i``.  Names and layouts are the same on both
 sides.  The tests use this so that both packages compute one function.
+
+Any tree of the parameters' structure (the reference's gradients, its AdamW
+moments) maps the same way onto the port's parameter names
+(:func:`named_from_reference`); :func:`opt_state_from_reference` builds the
+port's optimizer state from the reference's, so a test can continue a JAX
+run in the port.
 """
 from __future__ import annotations
 
@@ -50,6 +56,41 @@ def _load(module: torch.nn.Module, tree: Dict, where: str) -> None:
                              f"port's {tuple(p.shape)}")
         with torch.no_grad():
             p.copy_(torch.from_numpy(arr))
+
+
+def named_from_reference(np_tree: Dict, cfg: ArchConfig,
+                         model: LM) -> Dict[str, np.ndarray]:
+    """The leaves of a tree shaped like the reference's parameters (its
+    parameters, gradients or moments; numpy leaves), keyed by the port's
+    parameter names (``LM.named_parameters()``) as float32 arrays."""
+    trees = _layer_trees(np_tree, cfg)
+    out = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            leaf = trees[int(parts[1])][parts[2]][parts[3]]
+        else:
+            leaf = np_tree[parts[0]][parts[1]]
+        arr = np.array(leaf, dtype=np.float32)
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {arr.shape} vs the port's "
+                             f"{tuple(p.shape)}")
+        out[name] = arr
+    return out
+
+
+def opt_state_from_reference(np_opt: Dict, cfg: ArchConfig,
+                             model: LM) -> Dict:
+    """The port's AdamW state (``train/optimizer.py``) holding the
+    reference's ``{"m", "v", "count"}`` (numpy leaves), on ``model``'s
+    device."""
+    dev = model.device
+    return {
+        moment: {n: torch.from_numpy(a).to(dev) for n, a in
+                 named_from_reference(np_opt[moment], cfg, model).items()}
+        for moment in ("m", "v")} | {
+        "count": torch.tensor(int(np.asarray(np_opt["count"])),
+                              dtype=torch.int32, device=dev)}
 
 
 @torch.no_grad()

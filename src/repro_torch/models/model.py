@@ -1,30 +1,38 @@
-"""Model assembly: block-pattern decomposition, prefill forward, decode.
+"""Model assembly: block-pattern decomposition, forward, loss, decode.
 
-The port of the reference's ``models/model.py`` for inference.  Parameters
-are an ``nn.Module`` tree (``LM``) that keeps the reference's names and
-layouts, one ``LayerBlock`` per layer in layer order; the math stays in plain
+The port of the reference's ``models/model.py``.  Parameters are an
+``nn.Module`` tree (``LM``) that keeps the reference's names and layouts,
+one ``LayerBlock`` per layer in layer order; the math stays in plain
 functions on tensors.  The reference scans a repeated unit of blocks with
 stacked parameters (``decompose``) to keep its compiled program small;
-PyTorch runs eagerly, so the port loops over the layers and uses
-``decompose`` only to map the reference's stacked tree onto its layers
-(``models/convert.py``).
+PyTorch runs eagerly, so the port loops over the layers, and uses
+``decompose`` to map the reference's stacked tree onto its layers
+(``models/convert.py``) and to find the unit that activation
+checkpointing (``cfg.remat``) wraps, the unit the reference's scan
+checkpoints.
 
 Ported mixers: ``attn``, ``local``, ``enc`` and ``rglru``, with the ``mlp``
 ffn; ``configs.get_arch`` raises ``NotImplementedError`` for the
-architectures that need the others until ROADMAP Q9c brings them.  Prefill
-and decode
-run under ``torch.inference_mode()``: neither kernel has a backward
-yet (ROADMAP Q9b).  ``forward`` returns the logits alone: the reference's
-second output, the MoE auxiliary loss, is 0 for every ported block and
-comes back with MoE.
+architectures that need the others until ROADMAP Q9c brings them.
+``forward`` is differentiable: both kernels have a backward kernel on the
+card.  A caller that wants no gradient (a prefill, serving) runs it under
+``torch.inference_mode()``; parameters are frozen until a trainer asks for
+gradients (``train.step.init_train_state``).  ``decode_step`` runs under
+``torch.inference_mode()`` itself.  ``forward`` returns the logits alone:
+the reference's second output, the MoE auxiliary loss, is 0 for every
+ported block and comes back with MoE; ``loss_fn`` reports it as a zero
+tensor.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig, Block
 from repro_torch.launch.mesh import resolve_device
@@ -35,6 +43,7 @@ from repro_torch.models.common import (MLP, Embed, Norm, apply_mlp,
                                        lm_logits)
 
 ATTN_MIXERS = ("attn", "local", "enc")
+AUX_COEF = 0.01
 
 
 def _not_ported(what: str):
@@ -152,14 +161,78 @@ def apply_block(x, p: LayerBlock, cfg, block: Block):
     return x + h
 
 
-@torch.inference_mode()
+def _saves_2d_products(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the outputs of plain 2-D matrix products (the
+    projections, whose batch and sequence axes fold into rows) and recompute
+    everything else — the counterpart of JAX's
+    ``dots_with_no_batch_dims_saveable``."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ArchConfig):
+    """``fn`` under ``cfg.remat``: ``none`` as it is, ``full`` checkpointed
+    (its activations dropped and recomputed in the backward), ``dots``
+    checkpointed but for the matrix products' outputs.  Non-reentrant, as
+    ``jax.checkpoint`` is."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        ctx_fn = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                   _saves_2d_products)
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
+                                 context_fn=ctx_fn)
+    raise ValueError(f"remat must be none, full or dots, got {cfg.remat!r}")
+
+
 def forward(params: LM, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
-    """Returns logits [B,S,V] float32."""
+    """Returns logits [B,S,V] float32.
+
+    The layers of each repetition of ``decompose(cfg.blocks())``'s unit run
+    as one checkpointed call under ``cfg.remat``, as the reference's scan
+    body does; the prefix and suffix layers run plain, as in the
+    reference.  Checkpointing only acts where autograd records a graph."""
+    layout = decompose(cfg.blocks())
+    blocks = list(zip(params.blocks, cfg.blocks()))
+    n_pre, n_unit = len(layout.prefix), len(layout.unit)
+    n_body = n_unit * layout.reps
+
+    def run(x, *layers):
+        for p, b in layers:
+            x = apply_block(x, p, cfg, b)
+        return x
+
     x = embed_tokens(batch["tokens"], params.embed, cfg)
-    for p, b in zip(params.blocks, cfg.blocks()):
-        x = apply_block(x, p, cfg, b)
+    x = run(x, *blocks[:n_pre])
+    unit = _remat(run, cfg) if torch.is_grad_enabled() else run
+    for r in range(layout.reps):
+        x = unit(x, *blocks[n_pre + r * n_unit:n_pre + (r + 1) * n_unit])
+    x = run(x, *blocks[n_pre + n_body:])
     x = apply_norm(x, params.out_norm, cfg)
     return lm_logits(x, params.embed, params.head, cfg)
+
+
+def loss_fn(params: LM, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
+    """Mean next-token cross-entropy over labels >= 0 (others are masked),
+    the reference's ``loss_fn``: returns ``(total, {"loss", "aux"})`` with
+    ``total = loss + AUX_COEF * aux``; ``aux``, the MoE auxiliary loss, is a
+    float32 zero for the ported blocks."""
+    logits = forward(params, batch, cfg)
+    labels = batch["labels"]
+    if not cfg.encoder_only:   # next-token prediction
+        logits = logits[:, :-1]
+        labels = labels[:, 1:]
+    valid = labels >= 0
+    nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                          labels.clamp(min=0).reshape(-1).long(),
+                          reduction="none").view(labels.shape)
+    nll = torch.where(valid, nll, torch.zeros((), device=nll.device))
+    loss = nll.sum() / valid.sum().clamp(min=1)
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss + AUX_COEF * aux, {"loss": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

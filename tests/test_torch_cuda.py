@@ -23,6 +23,17 @@ a direct upload, ``submit`` from three threads with the launch and path
 counts exact, and a gateway burst that coalesces and then hits its cache,
 every answer equal to ``fct_star``.
 
+The training path on the card: the backward kernels (flash_attention_bwd,
+lru_scan_bwd) against their plain versions' autograd — flash within 1e-4 of
+each gradient's max |g| in float32 and 4e-2 + 4e-2 |g| in bfloat16 (the
+forward's rule; the plain side computes in float32 from the same bf16
+inputs), lru_scan within 1e-5 of max |g| plus 1e-5 |g| in float32 — two
+backward calls bit-equal, the float32 lru backward equal to its emulated
+order (``tests/_lru_kernel_order_bwd.py``) bit for bit, and a reduced
+recurrentgemma-2b train step through both backward kernels against the same
+step on the CPU (loss 1e-4, every gradient leaf within 1e-4 of its max
+|g|).
+
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import numpy as np
@@ -32,6 +43,7 @@ import torch
 import threading
 
 from _lru_kernel_order import kernel_order
+from _lru_kernel_order_bwd import kernel_order_bwd
 from repro_torch.api import FCTRequest, FCTSession, SessionConfig
 from repro_torch.core.accum import INT32_CHECKED
 from repro_torch.core.plan import RelationRef
@@ -606,3 +618,154 @@ def test_two_jobs_on_card(cuda_device, tmp_path):
                                              dtype=torch.int32)}}
     _, back = restore_checkpoint(str(tmp_path), template)
     assert back["fact"]["text"].is_cuda
+
+
+# -- the training path on the card ---------------------------------------------
+
+FLASH_GRAD_CASES = [
+    (2, 128, 4, 2, 32, 32, True, None),     # GQA causal
+    (1, 200, 6, 1, 16, 16, True, 64),       # MQA + local window, ragged S
+    (2, 96, 4, 4, 32, 16, False, None),     # encoder, dv != d
+    (1, 64, 2, 2, 128, 128, True, None),
+    (1, 300, 2, 1, 256, 256, True, 100),    # S > window, window % 32 != 0
+    (1, 1100, 3, 1, 64, 64, True, 1000),    # several q tiles, band skipping
+    (1, 333, 2, 1, 256, 128, False, None),  # encoder D 256, Dv 128, ragged
+]
+
+
+def _grads_of(fn, tensors, g):
+    ins = [t.detach().clone().requires_grad_(True) for t in tensors]
+    out = fn(*ins)
+    out.backward(g)
+    return out.detach(), [t.grad for t in ins]
+
+
+@pytest.mark.parametrize("b,s,h,hkv,d,dv,causal,window", FLASH_GRAD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_matches_plain_autograd(cuda_device, b, s, h, hkv, d,
+                                                 dv, causal, window, dtype):
+    q, k, v, g = (torch.from_numpy(RNG.normal(size=shape)).to(cuda_device,
+                                                              dtype)
+                  for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, dv),
+                                (b, s, h, dv)))
+    kw = dict(causal=causal, window=window)
+    before = dict(flash_kernel.LAUNCHES)
+    _, got = _grads_of(lambda *t: flash_ops.flash_attention(*t, **kw),
+                       (q, k, v), g)
+    assert (flash_kernel.LAUNCHES["flash_attention_bwd"]
+            == before["flash_attention_bwd"] + 1)
+    _, again = _grads_of(lambda *t: flash_ops.flash_attention(*t, **kw),
+                         (q, k, v), g)
+    _, want = _grads_of(lambda *t: flash_ops.flash_attention(
+        *t, backend="ref", block_q=64, block_k=64, **kw), (q, k, v), g)
+    torch.cuda.synchronize()
+    for a, a2, w in zip(got, again, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        assert torch.equal(a, a2)
+        a, w = a.float(), w.float()
+        if dtype == torch.float32:
+            assert float((a - w).abs().max()) <= 1e-4 * float(w.abs().max())
+        else:
+            assert bool(((a - w).abs() <= 4e-2 + 4e-2 * w.abs()).all())
+
+
+def test_flash_forward_writes_lse_only_when_asked(cuda_device):
+    q = torch.randn(1, 300, 2, 64, device=cuda_device)
+    k = torch.randn(1, 300, 1, 64, device=cuda_device)
+    v = torch.randn(1, 300, 1, 64, device=cuda_device)
+    o, lse = flash_kernel.flash_attention(q, k, v, causal=True, window=50,
+                                          lse=True)
+    assert torch.equal(o, flash_kernel.flash_attention(q, k, v, causal=True,
+                                                       window=50))
+    scores = torch.einsum("bqhd,bkd->bhqk", q, k[:, :, 0]) / 8.0
+    i = torch.arange(300, device=cuda_device)
+    ok = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < 50)
+    want = torch.logsumexp(scores.masked_fill(~ok, float("-inf")), -1)
+    torch.testing.assert_close(lse, want, atol=1e-5, rtol=1e-6)
+    # no gradient asked: the forward alone, no backward Function
+    with torch.inference_mode():
+        out = flash_ops.flash_attention(q, k, v, causal=True)
+    assert out.grad_fn is None
+
+
+LRU_GRAD_SHAPES = [(1, 1, 5), (3, 127, 127), (1, 128, 129), (3, 129, 2560),
+                   (1, 8192 + 37, 129), (2, 1000, 2560)]
+
+
+@pytest.mark.parametrize("b,s,w", LRU_GRAD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lru_scan_bwd_matches_plain_autograd(cuda_device, b, s, w, dtype):
+    a = torch.from_numpy(RNG.uniform(0.8, 1.0, (b, s, w))).to(cuda_device,
+                                                              dtype)
+    x, g = (torch.from_numpy(RNG.normal(size=(b, s, w))).to(cuda_device,
+                                                            dtype)
+            for _ in range(2))
+    before = lru_kernel.LAUNCHES["lru_scan_bwd"]
+    _, got = _grads_of(lru_ops.lru_scan, (a, x), g)
+    assert lru_kernel.LAUNCHES["lru_scan_bwd"] == before + 1
+    _, again = _grads_of(lru_ops.lru_scan, (a, x), g)
+    _, want = _grads_of(lambda *t: lru_ops.lru_scan(*t, backend="ref"),
+                        (a, x), g)
+    torch.cuda.synchronize()
+    for got_, again_, want_ in zip(got, again, want):
+        assert torch.equal(got_, again_)
+        d, wf = (got_.float() - want_.float()).abs(), want_.float().abs()
+        if dtype == torch.float32:
+            assert bool((d <= 1e-5 * float(wf.max()) + 1e-5 * wf).all())
+        else:
+            assert bool((d <= 4e-2 + 4e-2 * wf).all())
+
+
+@pytest.mark.parametrize("b,s,w", [(3, 8192 + 37, 129), (1, 1000, 2560)])
+def test_lru_scan_bwd_follows_its_emulated_order(cuda_device, b, s, w):
+    geom = lru_kernel.geometry(torch.float32, b, s, w)
+    a = RNG.uniform(0.8, 1.0, (b, s, w)).astype(np.float32)
+    h = RNG.normal(size=(b, s, w)).astype(np.float32)
+    dh = RNG.normal(size=(b, s, w)).astype(np.float32)
+    da, db = lru_kernel.lru_scan_bwd(*(torch.from_numpy(t).to(cuda_device)
+                                       for t in (a, h, dh)))
+    want_da, want_db = kernel_order_bwd(a, h, dh, geom["sub_steps"],
+                                        geom["chunk_steps"])
+    for got, want in ((db, want_db), (da, want_da)):
+        got = got.cpu().numpy()
+        diff = got.view(np.uint32) != want.view(np.uint32)
+        assert not diff.any(), (f"{int(diff.sum())} of {diff.size} differ, "
+                                f"max abs {np.max(np.abs(got - want))}")
+
+
+def test_reduced_model_train_step_through_kernels(cuda_device):
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.step import make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("recurrentgemma-2b").reduced()
+    tok = torch.from_numpy(RNG.integers(0, cfg.vocab_size, (2, 1100)))
+    batch = {"tokens": tok, "labels": tok}
+    on_card = M.init_params(cfg, cuda_device, seed=3).requires_grad_(True)
+    on_cpu = M.init_params(cfg, "cpu", seed=3).requires_grad_(True)
+    with torch.no_grad():
+        for p, q in zip(on_card.parameters(), on_cpu.parameters()):
+            q.copy_(p)
+    flash_kernel.LIB.reset_launches()
+    lru_kernel.LIB.reset_launches()
+    flash_ops.reset_path_counts()
+    lru_ops.reset_path_counts()
+    total, _ = M.loss_fn(on_card, {k: t.to(cuda_device) for k, t in
+                                   batch.items()}, cfg)
+    total.backward()
+    torch.cuda.synchronize()
+    assert flash_kernel.LAUNCHES["flash_attention_bwd"] == 1
+    assert lru_kernel.LAUNCHES["lru_scan_bwd"] == 2
+    assert flash_ops.PATH_COUNTS["ref"] == lru_ops.PATH_COUNTS["ref"] == 0
+    want, _ = M.loss_fn(on_cpu, batch, cfg)
+    want.backward()
+    assert abs(float(total.detach()) - float(want.detach())) < 1e-4
+    for (name, p), q in zip(on_card.named_parameters(), on_cpu.parameters()):
+        scale = float(q.grad.abs().max())
+        assert float((p.grad.cpu() - q.grad).abs().max()) <= 1e-4 * scale, \
+            name
+    step = make_train_step(cfg)
+    state = init_opt_state(dict(on_card.named_parameters()))
+    _, state, metrics = step(on_card, state, {k: t.to(cuda_device) for k, t
+                                              in batch.items()})
+    assert int(state["count"]) == 1
+    assert bool(torch.isfinite(metrics["grad_norm"]))

@@ -6,12 +6,23 @@ same numpy-seeded inputs, in the reference's ``[B, S, H, D]`` layout.
 Tolerances are the reference's own (``tests/test_kernels.py``): 2e-5 in
 float32, 4e-2 in bfloat16 (one bf16 rounding of outputs of magnitude ~1,
 taken after float32 math on both sides).
+
+The gradient: ``ops.flash_attention`` under autograd on CPU tensors (the
+plain version differentiated) against ``jax.grad`` of the reference's plain
+version, float32, over the same cases: every one of dq, dk, dv within 2e-5
+of its max |g| plus 2e-5 relative (the forward's 2e-5, scaled by the
+gradient's size: dk and dv sum over the query rows and the heads of a
+group).  And the backward kernel's formula (``csrc/flash_attention.cu``:
+delta = rowsum(dO o), P from the forward's log-sum-exp, dS = P (dO v - delta))
+in plain PyTorch against that autograd, within the same rule.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro_torch.kernels.flash_attention import kernel, ops
 
@@ -185,3 +196,82 @@ def test_mma_kernel_needs_the_split_p_product():
     assert float((split / limit).max()) <= 1.0
     single = (_emulate_mma_kernel(q, k, v, 2048, split=False) - want).abs()
     assert float((single / limit).max()) > 1.0
+
+
+# --- the gradient ---------------------------------------------------------------
+def _grads(tq, tk, tv, g, **kw):
+    ins = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    ops.flash_attention(*ins, **kw).backward(g)
+    return [t.grad for t in ins]
+
+
+def _assert_grad_close(got, want, name):
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5 * scale,
+                               err_msg=name)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
+def test_plain_gradient_matches_reference(case):
+    causal, window, bq, bk = case[6:]
+    tq, tk, tv = _inputs(case, "float32", seed=sum(case[:6]) + 1)
+    rng = np.random.default_rng(sum(case[:6]))
+    g = rng.normal(size=(*tq.shape[:3], tv.shape[-1])).astype(np.float32)
+    got = _grads(tq, tk, tv, torch.from_numpy(g), causal=causal,
+                 window=window, block_q=bq, block_k=bk)
+    want = jax.jit(jax.grad(lambda q, k, v: jnp.sum(jax_flash(
+        q, k, v, causal=causal, window=window, block_q=bq, block_k=bk,
+        backend="ref") * g), argnums=(0, 1, 2)))(
+        *(jnp.asarray(t.numpy()) for t in (tq, tk, tv)))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == tuple(b.shape)
+        _assert_grad_close(a.numpy(), np.asarray(b), name)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 20),
+                                           (False, None)])
+def test_backward_kernel_formula(causal, window):
+    """The backward kernel's arithmetic, densely: lse of each row's scaled
+    scores, delta = rowsum(dO o), P = exp(s - lse) in the mask,
+    dS = P (dO v - delta), dV = sum P dO over the group's heads, dK = scale
+    sum dS q, dQ = scale sum dS k; GQA, ragged S."""
+    b, s, h, hkv, d, dv = 2, 77, 4, 2, 16, 8
+    tq, tk, tv = _inputs((b, s, h, hkv, d, dv), "float32", seed=9)
+    do = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(b, s, h, dv)).astype(np.float32))
+    want = _grads(tq, tk, tv, do, causal=causal, window=window, block_q=16,
+                  block_k=16)
+    o = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    g = h // hkv
+    scale = 1.0 / d ** 0.5
+    kx = tk.repeat_interleave(g, dim=2)                # [b, s, h, d]
+    vx = tv.repeat_interleave(g, dim=2)
+    sc = torch.einsum("bqhd,bkhd->bhqk", tq, kx) * scale
+    i = torch.arange(s)
+    ok = torch.ones(s, s, dtype=torch.bool)
+    if causal or window is not None:
+        ok = i[:, None] >= i[None, :]
+        if window is not None:
+            ok &= i[:, None] - i[None, :] < window
+    lse = torch.logsumexp(sc.masked_fill(~ok, float("-inf")), dim=-1)
+    p = torch.where(ok, torch.exp(sc - lse[..., None]), torch.zeros(()))
+    delta = torch.einsum("bqhc,bqhc->bhq", do, o)
+    dp = torch.einsum("bqhc,bkhc->bhqk", do, vx)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kx) * scale
+    dk = (torch.einsum("bhqk,bqhd->bkhd", ds, tq) * scale).reshape(
+        b, s, hkv, g, d).sum(3)
+    dvv = torch.einsum("bhqk,bqhc->bkhc", p, do).reshape(
+        b, s, hkv, g, dv).sum(3)
+    for name, a, w in zip(("dq", "dk", "dv"), (dq, dk, dvv), want):
+        _assert_grad_close(a.numpy(), w.numpy(), name)
+
+
+def test_bwd_kernel_refuses_cpu_tensors():
+    q = torch.ones(1, 8, 2, 16)
+    lse = torch.zeros(1, 2, 8)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        kernel.flash_attention_bwd(q, q, q, q, lse, q)
+    assert kernel.LAUNCHES["flash_attention_bwd"] == 0

@@ -55,6 +55,10 @@ def test_every_module_imports_without_a_card():
     assert "repro_torch.launch.fct_serve" in names
     assert "repro_torch.serve.gateway" in names
     assert "repro_torch.distributed.checkpoint" in names
+    for module in ("train.step", "train.optimizer", "train.loop",
+                   "train.dp_trainer", "distributed.compression",
+                   "launch.train", "models.convert"):
+        assert f"repro_torch.{module}" in names
     for name in names:
         importlib.import_module(name)
 
@@ -87,6 +91,25 @@ def test_lm_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA device requested"):
         serve.main(["--arch", "recurrentgemma-2b"])
     assert M.init_params(cfg, "cpu").device.type == "cpu"
+
+
+def test_training_entry_points_default_to_cuda():
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch import train as launcher
+    from repro_torch.train.loop import LoopConfig, data_stream, train
+    from repro_torch.train.step import init_train_state
+    cfg = get_arch("recurrentgemma-2b").reduced()
+    if torch.cuda.is_available():
+        assert next(data_stream(cfg, 1, 4))["tokens"].is_cuda
+        return
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        init_train_state(cfg)
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        next(data_stream(cfg, 1, 4))
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        train(cfg, LoopConfig(steps=1))
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        launcher.main(["--arch", "recurrentgemma-2b", "--steps", "1"])
 
 
 def test_fct_serve_refuses_without_a_card(capsys):

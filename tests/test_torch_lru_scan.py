@@ -13,7 +13,15 @@ emulated in numpy (``tests/_lru_kernel_order.py``) and held to the same 1e-5
 rule against the plain loop, the rule ``chip_smoke.py`` and
 ``tests/test_torch_cuda.py`` hold the kernel to on the card; there the
 kernel is also held to the emulation bit for bit.
+
+The gradient: the plain loop under autograd (what a CPU tensor takes)
+against ``jax.grad`` of the reference's associative scan, within 1e-5 of each
+gradient's max |g| plus 1e-5 relative (the forward's rule, scaled: g sums
+dh over up to hundreds of steps at a in [0.8, 1)).  The backward kernel's
+order (the reverse chunk walk, ``tests/_lru_kernel_order_bwd.py``) is held
+to the plain autograd by the same 1e-5 rule as the forward's order.
 """
+import functools
 from fractions import Fraction
 
 import jax.numpy as jnp
@@ -21,7 +29,11 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
 from _lru_kernel_order import fmaf, kernel_order
+from _lru_kernel_order_bwd import kernel_order_bwd
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from repro.kernels.lru_scan import ref as jax_ref
 from repro_torch.kernels.lru_scan import kernel, ops
 
@@ -194,3 +206,82 @@ def test_kernel_order_as_accurate_as_the_plain_loop_without_the_gates():
     ulp = np.finfo(np.float32).eps * np.max(np.abs(exact))
     assert (np.max(np.abs(got - exact))
             <= np.max(np.abs(want - exact)) + ulp)
+
+
+# --- the gradient ---------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def _order_case(b, s, w, long_memory):
+    """The gated inputs of one order case, dh, and the plain autograd's h,
+    da, db on them (shared by both geometries)."""
+    a, x = _gated_inputs(b * 7907 + s + w, b, s, w, long_memory)
+    dh = (np.random.default_rng(s + w).normal(size=a.shape) * 0.1).astype(
+        np.float32)
+    return (a, dh) + _plain_grads(a, x, dh)
+
+
+def _plain_grads(a, x, dh):
+    ta = torch.from_numpy(a).requires_grad_(True)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    h = ops.lru_scan(ta, tx)
+    h.backward(torch.from_numpy(dh))
+    return h.detach().numpy(), ta.grad.numpy(), tx.grad.numpy()
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("b,s,w", [(2, 64, 32), (1, 300, 70), (3, 17, 5)])
+def test_plain_gradient_matches_reference(b, s, w):
+    a, x = _inputs(b * 31 + s, b, s, w)
+    dh = np.random.default_rng(s).normal(size=a.shape).astype(np.float32)
+    _, da, dx = _plain_grads(a, x, dh)
+    ja, jx = jax.jit(jax.grad(lambda a_, x_: jnp.sum(
+        jax_ref.lru_scan(a_, x_) * dh), argnums=(0, 1)))(
+        jnp.asarray(a), jnp.asarray(x))
+    for got, want in ((da, np.asarray(ja)), (dx, np.asarray(jx))):
+        tol = TOL * float(np.abs(want).max())
+        np.testing.assert_allclose(got, want, rtol=TOL, atol=tol)
+
+
+def test_plain_gradient_of_one_step_and_no_step():
+    a = torch.tensor([[[0.5, 2.0]]], requires_grad=True)
+    x = torch.tensor([[[1.0, -1.0]]], requires_grad=True)
+    ops.lru_scan(a, x).sum().backward()
+    # h_0 = b_0: da_0 = dh_0 * h_{-1} = 0, db_0 = dh_0
+    assert torch.equal(a.grad, torch.zeros_like(a))
+    assert torch.equal(x.grad, torch.ones_like(x))
+    empty = torch.zeros(2, 0, 3)
+    assert ops.lru_scan(empty, empty).shape == (2, 0, 3)
+
+
+def test_bwd_kernel_refuses_cpu_tensors():
+    a = torch.ones(1, 4, 2)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        kernel.lru_scan_bwd(a, a, a)
+    assert kernel.LAUNCHES["lru_scan_bwd"] == 0
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("sub,chunk", GEOMETRIES)
+@pytest.mark.parametrize("b,s,w,long_memory", [
+    (1, 2304, 64, False), (2, 129, 48, False), (1, 8192, 16, True)])
+def test_bwd_kernel_order_within_the_rule_of_the_plain_autograd(
+        b, s, w, long_memory, sub, chunk):
+    """The backward kernel's order (reverse chunk walk, coefficient a[t+1]
+    by index, da fused from h[t-1]) against the plain loop's autograd by
+    the 1e-5 rule of the forward, |kernel - plain| <= 1e-5 + 1e-5 |plain|,
+    on the gates' statistics and the long-memory input; and no farther
+    from a float64 reverse loop than the plain autograd, up to one float32
+    rounding of the largest |g|."""
+    a, dh, h, da, db = _order_case(b, s, w, long_memory)
+    got_da, got_db = kernel_order_bwd(a, h, dh, sub, chunk)
+    for got, want in ((got_da, da), (got_db, db)):
+        share = np.max(np.abs(got - want) / (TOL + TOL * np.abs(want)))
+        assert share <= 1.0, f"worst error {share} of the 1e-5 limit"
+    g64 = np.zeros(a.shape, np.float64)
+    run = np.zeros(a.shape[::2], np.float64)
+    for t in reversed(range(s)):
+        nxt = a[:, t + 1].astype(np.float64) if t + 1 < s else 0.0
+        run = dh[:, t] + nxt * run
+        g64[:, t] = run
+    ulp = np.finfo(np.float32).eps * np.max(np.abs(g64))
+    assert (np.max(np.abs(got_db - g64))
+            <= np.max(np.abs(db - g64)) + ulp)
