@@ -19,10 +19,11 @@ Phases, one line each, then a kernels line and a last line with the device:
                 int64 (past 2^33, wrapping near 2^62), float32 (exact
                 range), ragged vocabs, all-PAD, ids outside the vocab,
                 B > 1; integer and exact-range float cases bit-equal
-                (``torch.equal``).  flash_attention: D in {16, 32, 64, 128,
-                256}, GQA, MQA, Dv != D, encoder (non-causal), windows with
-                S > window and a window that is no multiple of the tile,
-                ragged S, float32 within 2e-5 and bfloat16 within 4e-2 (the
+                (``torch.equal``).  flash_attention: D in {16, 32, 64, 80,
+                128, 192, 256}, GQA (15/5 too), MQA, Dv != D (192/128 and
+                16/8 among them), encoder (non-causal), windows with S >
+                window and a window that is no multiple of the tile, ragged
+                S, causal with no window at S 1 100, float32 within 2e-5 and bfloat16 within 4e-2 (the
                 reference's tolerances).  lru_scan: float32 within 1e-5,
                 bfloat16 within 4e-2, at the chunk (128 steps) and tile (64
                 / 128 channels) edges: S in {1, 127, 128, 129, 8 229}, W in
@@ -162,7 +163,17 @@ Phases, one line each, then a kernels line and a last line with the device:
                 TB/s), the plain versions' backward
                 and ``scaled_dot_product_attention``'s backward (each
                 forward + backward minus its forward), launches per train
-                step.  (Run after phases 14-16, whose inputs it uses.)
+                step.  Then flash_attention and its backward at the new head
+                dims, on phase 17's captured first-layer prefill inputs of
+                HuBERT-XLarge ([1, 4 096, 16, 80], full mask) and
+                DeepSeek-V2 (q/k [1, 4 096, 128, 192], v [..., 128],
+                causal): the forward by phase 3's rule and the one-rounding
+                rule, the backward (on the kernel's own o and lse and a dO
+                from a fixed seed) by lm_train's, two calls bit-equal, each
+                timed beside its bound, the plain version and
+                ``scaled_dot_product_attention``; they go into the kernels
+                line as ``new_head_dims``.  (Run after phases 14-17, whose
+                inputs it uses.)
  14. lm_train   recurrentgemma-2b at full width and depth in bf16, remat
                 "full", random weights from ``--seed``: 6
                 ``make_train_step`` steps of B 1 x S 4 096 from
@@ -194,6 +205,34 @@ Phases, one line each, then a kernels line and a last line with the device:
                 card bit-equal, leaf by leaf, to a plain recomputation of
                 its definition (shared scale, half-even rounding, int32
                 sum, residual rounded once).
+ 17. lm_archs   the nine other architectures of ``configs/base.py``
+                (Pixtral-12B, SmolLM-360M, Gemma-7B, Granite-20B, OLMo-1B,
+                HuBERT-XLarge, DeepSeek-V2-236B, DeepSeekMoE-16B,
+                RWKV6-1.6B) at full width, random weights from ``--seed``.
+                Each: a bf16 prefill ``forward`` of B 1 x S 4 096 (cut from
+                prefill_32k; Pixtral's first 256 positions are patches) at
+                full depth, but DeepSeek-V2's dense layer and as many MoE
+                layers as leave 16 GB of the card free (at least two), inside
+                ``counted``: one flash launch per attention or MLA layer,
+                no plain-version call, finite logits, aux > 0 exactly for
+                the MoE models; wall ms, ``max_memory_allocated`` and one
+                more forward under ``torch.profiler`` (device idle share;
+                RWKV6's of its first 4 layers, whose 200 000 launches at
+                full depth take the profiler half a minute to read).
+                Then float32 at depth cut to the layout's prefix and one
+                unit: ``forward`` at S 1 088 (flash) against token-by-token
+                ``decode_step`` (Pixtral's patches through ``embeds=``;
+                MoE at capacity_factor 16, drop-free), within 5e-3 and the
+                same top-1 where the margin is clear; HuBERT has no decode
+                step.  Then two bf16 ``make_train_step`` steps, remat
+                "full", B 1 x S 2 048, at the depth whose parameters stay
+                under 3e9 (AdamW's state, about 16 B a parameter; RWKV6 at
+                4 layers for time), each inside ``counted`` with the exact
+                flash and flash-backward launches, finite loss and grad
+                norm, aux > 0 exactly with MoE layers; DeepSeek-V2 trains
+                its dense layer and takes the gradient of its dense layer
+                and one MoE layer besides (not one MoE layer fits beside
+                AdamW's state).
 
 Float32 matrix products run in full float32 (TF32 off).  Exits non-zero,
 printing no result, when there is no CUDA device, when the package is
@@ -326,7 +365,9 @@ def build_report(libs) -> str:
     mma = {k: v for k, v in hmma_all.items()
            if k.startswith("flash_attention_mma_kernel")}
     if hmma_all:
-        check(len(mma) == 9 and all(v > 0 for v in mma.values()),
+        from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
+        check(len(mma) == len(HEAD_DIMS) and all(v > 0 for v in
+                                                 mma.values()),
               f"bf16 flash kernels without tensor-core instructions: {mma}")
         check(all(v == 0 for k, v in hmma_all.items()
                   if k.startswith("flash_attention_kernel")),
@@ -526,15 +567,19 @@ def run_main_path(torch, np, args, dev):
 
 # --- phase 5: where one warm query's device time goes -------------------------
 
-def profile_device(torch, run, kernels) -> str:
+def profile_device(torch, run, kernels, host_ops=True) -> str:
     """``run()`` once under ``torch.profiler``: device time by kernel name,
     the share of each of ``kernels`` (name -> substring of its device
     kernel's name), and the device's busy share of the wall time (host clock
-    up to a synchronize)."""
+    up to a synchronize).  ``host_ops=False`` records the device's activity
+    alone (the readings use nothing else), which spares a run of hundreds
+    of thousands of launches millions of host events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -1336,6 +1381,14 @@ def flash_cases(torch, np, dev):
          True, 300),
         ("encoder D256 Dv128 ragged S333", 1, 333, 2, 1, 256, 128, False,
          None),
+        # the head dims and groupings of the nine other architectures
+        ("encoder D80 (HuBERT) S1100", 1, 1100, 4, 4, 80, 80, False, None),
+        ("MLA D192 Dv128 causal S1100", 1, 1100, 4, 4, 192, 128, True,
+         None),
+        ("reduced MLA D16 Dv8 causal ragged S300", 2, 300, 4, 4, 16, 8, True,
+         None),
+        ("GQA 15/5 (SmolLM) causal S1100", 1, 1100, 15, 5, 64, 64, True,
+         None),
     ]
     for label, b, s, h, hkv, d, dv, causal, window in shapes:
         base = [rng.normal(size=shape).astype(np.float32) for shape in
@@ -1576,7 +1629,7 @@ def run_lm_prefill(torch, args, dev):
     try:
         t1 = time.perf_counter()
         with torch.inference_mode():
-            logits = M.forward(params, batch, cfg)
+            logits, _ = M.forward(params, batch, cfg)
         torch.cuda.synchronize(dev)
         cold_ms = (time.perf_counter() - t1) * 1e3
     finally:
@@ -1602,7 +1655,7 @@ def run_lm_prefill(torch, args, dev):
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
     with torch.inference_mode():
-        logits = M.forward(params, batch, cfg)
+        logits, _ = M.forward(params, batch, cfg)
     torch.cuda.synchronize(dev)
     warm_ms = (time.perf_counter() - t1) * 1e3
     del logits
@@ -1637,7 +1690,7 @@ def run_lm_decode(torch, args, dev) -> str:
     reset_all_counts()
     t0 = time.perf_counter()
     with torch.inference_mode():
-        fwd = M.forward(params, {"tokens": tokens}, cfg)
+        fwd, _ = M.forward(params, {"tokens": tokens}, cfg)
     torch.cuda.synchronize(dev)
     fwd_ms = (time.perf_counter() - t0) * 1e3
     launches, paths = read_counts()
@@ -1700,19 +1753,21 @@ def train_step_launches(cfg, layout):
     """The launches one train step must make of each LM kernel: under
     remat "full" each repetition of the layout's unit runs its forward
     twice (the recompute), the prefix and suffix layers once, and every
-    layer its backward once."""
+    layer its backward once.  Flash serves every attention and MLA mixer,
+    lru_scan every rglru."""
     n_pre, n_body = len(layout.prefix), len(layout.unit) * layout.reps
     blocks = cfg.blocks()
     body = blocks[n_pre:n_pre + n_body]
     rest = blocks[:n_pre] + blocks[n_pre + n_body:]
 
-    def n(bs, mixer):
-        return sum(m == mixer for m, _ in bs)
+    def n(bs, mixers):
+        return sum(m in mixers for m, _ in bs)
     twice = 2 if cfg.remat != "none" else 1
-    return {"flash_attention": twice * n(body, "local") + n(rest, "local"),
-            "flash_attention_bwd": n(blocks, "local"),
-            "lru_scan": twice * n(body, "rglru") + n(rest, "rglru"),
-            "lru_scan_bwd": n(blocks, "rglru")}
+    return {"flash_attention": (twice * n(body, ATTENTION_MIXERS)
+                                + n(rest, ATTENTION_MIXERS)),
+            "flash_attention_bwd": n(blocks, ATTENTION_MIXERS),
+            "lru_scan": twice * n(body, ("rglru",)) + n(rest, ("rglru",)),
+            "lru_scan_bwd": n(blocks, ("rglru",))}
 
 
 def run_lm_train(torch, args, dev):
@@ -2036,6 +2091,458 @@ def run_train_loop(torch, args, dev) -> str:
             f"|residual| {res_max:.6g}, max |mean| {mean_max:.6g})")
 
 
+# --- the nine other architectures: lm_archs ------------------------------------
+
+# every architecture of configs/base.py but recurrentgemma-2b (phases 10-16),
+# at published width, random weights from --seed
+ARCHS = ("pixtral-12b", "smollm-360m", "gemma-7b", "granite-20b", "olmo-1b",
+         "hubert-xlarge", "deepseek-v2-236b", "deepseek-moe-16b", "rwkv6-1.6b")
+ATTENTION_MIXERS = ("attn", "local", "enc", "mla")
+# prefill: cut from prefill_32k's B 32 x S 32 768 (as phase 10), S above
+# FLASH_MIN_SEQ; at full depth where the bf16 parameters leave this much of
+# the card free for the activations and the float32 temporaries of drawing
+# the largest parameter (a DeepSeek-V2 MoE layer's w_gate: 5 GB twice)
+ARCH_PREFILL_B, ARCH_PREFILL_S = 1, 4096
+ARCH_PREFILL_MARGIN = 16e9
+ARCH_DECODE_S = 1088                # >= 1 024: the forward takes flash
+ARCH_DECODE_CF = 16.0               # MoE capacity with no drops (tests/test_models.py)
+# decode against forward through an MoE layer: the router's probabilities on
+# the two paths agree within this (float32 summation order), and a token
+# whose chosen experts differ must be a tie that such a difference can
+# flip: its forward k-th and (k+1)-th probabilities no further apart than
+# twice the two paths' difference at that token (at DeepSeek-V2's width one
+# token of 1 088 has them exactly equal in float32, where one rounding
+# picks the other expert; tests/test_torch_mla_moe.py holds the tie order)
+ROUTER_PROB_TOL = 1e-5
+# one train step: cut from train_4k to B 1 x S 2 048, and in depth to what
+# AdamW allows: bf16 parameters and gradients, float32 m and v (12 B a
+# parameter) and the update's float32 temporaries, about 16 B a parameter,
+# kept under about 48 GB
+ARCH_TRAIN_B, ARCH_TRAIN_S = 1, 2048
+ARCH_TRAIN_PARAMS = 3.0e9
+# rwkv6's exact WKV recurrence is 2 048 host-launched steps a layer, run
+# again under remat and backwards: its depth is cut for the smoke's time
+ARCH_TRAIN_MAX_LAYERS = {"rwkv6-1.6b": 4}
+# and its prefill makes about 200 000 launches, whose profile takes the
+# profiler half a minute to read back: its profiled forward runs the first
+# 4 layers (the same steps a layer, so the same idle share)
+ARCH_PROFILE_LAYERS = {"rwkv6-1.6b": 4}
+# the prefill inputs of the first attention layer kept for lm_timing: the
+# new head dims, (80, 80) encoder and (192, 128) causal
+ARCH_CAPTURE = ("hubert-xlarge", "deepseek-v2-236b")
+
+
+def layer_params(torch, cfg):
+    """(parameters outside the layers, each layer's), counted on the meta
+    device."""
+    from repro_torch.models import model as M
+    lm = M.LM(cfg, torch.Generator(), torch.device("meta"))
+    layers = [sum(p.numel() for p in b.parameters()) for b in lm.blocks]
+    return sum(p.numel() for p in lm.parameters()) - sum(layers), layers
+
+
+def n_attention(blocks) -> int:
+    """The attention (flash) layers among ``blocks``."""
+    return sum(m in ATTENTION_MIXERS for m, _ in blocks)
+
+
+def moe_layers(cfg) -> int:
+    return sum(f == "moe" for _, f in cfg.blocks())
+
+
+def run_arch_prefill(torch, name, args, dev):
+    """One bf16 prefill ``forward`` of B x S at full width, inside
+    ``counted``; then one more under the profiler.  Returns (report,
+    captured first flash inputs or None)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.models import model as M
+
+    cfg = get_arch(name)
+    torch.cuda.empty_cache()
+    rest, layers = layer_params(torch, cfg)
+    budget = torch.cuda.mem_get_info(dev)[0] - ARCH_PREFILL_MARGIN
+    n, used = 0, 2 * rest
+    for p in layers:
+        if used + 2 * p > budget:
+            break
+        used, n = used + 2 * p, n + 1
+    if name == "deepseek-v2-236b":
+        check(n >= 3, f"{name}: {n} layers fit, fewer than the dense layer "
+                      f"and two MoE layers")
+    else:
+        check(n == cfg.n_layers, f"{name}: only {n} of {cfg.n_layers} layers "
+                                 f"fit beside a {ARCH_PREFILL_MARGIN:.0f} B "
+                                 f"margin")
+    cfg = dataclasses.replace(cfg, n_layers=n)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = M.init_params(cfg, dev, generator=gen)
+    batch = M.make_dummy_batch(cfg, ARCH_PREFILL_B, ARCH_PREFILL_S, gen, dev)
+    torch.cuda.synchronize(dev)
+    made_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    n_attn = n_attention(cfg.blocks())
+
+    def fwd():
+        with torch.inference_mode():
+            out = M.forward(params, batch, cfg)
+        torch.cuda.synchronize(dev)
+        return out
+
+    rec = FirstCall(flash_kernel.flash_attention)
+    flash_kernel.flash_attention = rec
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        t1 = time.perf_counter()
+        (logits, aux), launches = counted(
+            f"{name} prefill", fwd,
+            kernels=("flash_attention",) if n_attn else ())
+        cold_ms = (time.perf_counter() - t1) * 1e3
+    finally:
+        flash_kernel.flash_attention = rec.fn
+    peak = torch.cuda.max_memory_allocated(dev)
+    text = ARCH_PREFILL_S - (batch["patches"].shape[1]
+                             if cfg.frontend == "patch" else 0)
+    check(tuple(logits.shape) == (ARCH_PREFILL_B, text, cfg.vocab_size),
+          f"{name}: prefill logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), f"{name}: non-finite logits")
+    check(launches.get("flash_attention", 0) == n_attn,
+          f"{name}: {launches.get('flash_attention', 0)} flash launches for "
+          f"{n_attn} attention layers")
+    check(math.isfinite(float(aux)) and (float(aux) > 0) == bool(
+        moe_layers(cfg)), f"{name}: aux {float(aux)}")
+    aux = float(aux)
+    del logits
+    captured = None
+    if name in ARCH_CAPTURE:      # normal tensors, off the inference mode
+        (q, k, v), kw = rec.args
+        captured = ((q.clone(), k.clone(), v.clone()), dict(kw))
+    cut = dataclasses.replace(cfg, n_layers=ARCH_PROFILE_LAYERS.get(
+        name, cfg.n_layers))
+
+    def profiled():        # the first cut.n_layers layers of the same model
+        with torch.inference_mode():
+            M.forward(params, batch, cut)
+        torch.cuda.synchronize(dev)
+    profile = profile_device(torch, profiled, {"flash_attention":
+                                               "flash_attention"},
+                             host_ops=False)
+    del params, batch
+    torch.cuda.empty_cache()
+    return {"layers": n, "of_layers": get_arch(name).n_layers,
+            "parameters": n_params, "made_s": made_s, "cold_ms": cold_ms,
+            "device_peak_bytes": peak, "launches": launches,
+            "flash_launches": launches.get("flash_attention", 0),
+            "attention_layers": n_attn, "aux": aux,
+            "profiled_layers": cut.n_layers, "profile": profile}, captured
+
+
+def run_arch_decode(torch, name, args, dev):
+    """float32 at full width, depth cut to the prefix and one unit of the
+    layout: ``forward`` of S 1 088 (flash) against token-by-token
+    ``decode_step``; Pixtral prefills its patches through ``embeds=``."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import model as M
+
+    cfg = get_arch(name)
+    layout = M.decompose(cfg.blocks())
+    cfg = dataclasses.replace(
+        cfg, n_layers=len(layout.prefix) + len(layout.unit),
+        param_dtype=torch.float32, compute_dtype=torch.float32,
+        capacity_factor=ARCH_DECODE_CF if cfg.n_experts else
+        cfg.capacity_factor)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    params = M.init_params(cfg, dev, generator=gen)
+    batch = M.make_dummy_batch(cfg, 1, ARCH_DECODE_S, gen, dev)
+    routes = RouteRecorder()
+
+    def fwd():
+        with torch.inference_mode():
+            return M.forward(params, batch, cfg)[0]
+    t0 = time.perf_counter()
+    with routes:
+        logits, launches = counted(f"{name} float32 forward", fwd,
+                                   kernels=("flash_attention",)
+                                   if n_attention(cfg.blocks()) else ())
+    torch.cuda.synchronize(dev)
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    fwd_routes = routes.take()
+    check(launches.get("flash_attention", 0) == n_attention(cfg.blocks()),
+          f"{name}: float32 forward flash launches {launches}")
+    top2 = torch.topk(logits, 2, dim=-1)
+    margin = top2.values[..., 0] - top2.values[..., 1]
+    cache = M.init_cache(cfg, 1, ARCH_DECODE_S, dev)
+    pos = 0
+    t0 = time.perf_counter()
+    if cfg.frontend == "patch":
+        with torch.inference_mode():
+            emb = batch["patches"] @ params.frontend_proj.w
+        for t in range(emb.shape[1]):
+            _, cache = M.decode_step(params, cache, None, pos, cfg,
+                                     embeds=emb[:, t:t + 1])
+            pos += 1
+    tokens = batch["tokens"]
+    errs, top1 = [], []
+    with routes:
+        for i in range(tokens.shape[1]):
+            lg, cache = M.decode_step(params, cache, tokens[:, i:i + 1], pos,
+                                      cfg)
+            pos += 1
+            errs.append((lg[:, 0] - logits[:, i]).abs().max())
+            top1.append(lg[0, 0].argmax())
+    torch.cuda.synchronize(dev)
+    dec_ms = (time.perf_counter() - t0) * 1e3
+    errs, top1 = torch.stack(errs), torch.stack(top1)
+    routing = router_ties(torch, cfg, fwd_routes, routes.take(), name)
+    flipped = routing.pop("flipped")
+    # the positions whose routing agrees (all of them without MoE)
+    ok = ~flipped if flipped is not None else torch.ones_like(
+        errs, dtype=torch.bool)
+    err = float(errs[ok].max())
+    sure = ok & (margin[0] > 2 * DECODE_TOL)
+    clear = int(sure.sum())
+    flips = int((sure & (top1 != top2.indices[0, :, 0])).sum())
+    check(err < DECODE_TOL, f"{name}: decode vs forward max abs logit error "
+                            f"{err} >= {DECODE_TOL}")
+    check(flips == 0, f"{name}: {flips} top-1 ids differ where the "
+                      f"forward's top-2 margin exceeds {2 * DECODE_TOL}")
+    del params, cache, logits, top2, margin
+    torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers, "fwd_ms": fwd_ms, "decode_steps": pos,
+            "decode_ms": dec_ms, "max_abs_err": err,
+            "max_abs_err_all": float(errs.max()), "top1_checked": clear,
+            "capacity_factor": cfg.capacity_factor, **routing}
+
+
+class RouteRecorder:
+    """Within it every MoE routing (``models.moe.route``) keeps its router
+    probabilities and chosen experts, in call order."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.fn = moe.route
+
+        def route(xt, router, k):
+            out = self.fn(xt, router, k)
+            self.calls.append((out[0].detach(), out[2].detach()))
+            return out
+        moe.route = route
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self.fn
+
+    def take(self):
+        calls, self.calls = self.calls, []
+        return calls
+
+
+def router_ties(torch, cfg, fwd_calls, dec_calls, name):
+    """The MoE routing of the forward (one call per MoE layer over every
+    token) against decode's (one call per step and layer): the router
+    probabilities within ROUTER_PROB_TOL, the forward without drops, and
+    every token whose chosen experts differ a tie (see ROUTER_PROB_TOL).
+    Returns the readings and ``flipped``, a boolean per position (None
+    without MoE layers)."""
+    n = len(fwd_calls)
+    if n == 0:
+        return {"flipped": None}
+    k = cfg.moe_top_k
+    flipped, worst, ties = None, 0.0, []
+    for layer in range(n):
+        fp, fi = fwd_calls[layer]
+        dp = torch.cat([p for p, _ in dec_calls[layer::n]])
+        di = torch.cat([i for _, i in dec_calls[layer::n]])
+        t = fp.shape[0]
+        cap = math.ceil(t * k / cfg.n_experts * cfg.capacity_factor)
+        most = int(torch.bincount(fi.reshape(-1), minlength=cfg.n_experts)
+                   .max())
+        check(most <= cap, f"{name}: the forward dropped assignments ({most} "
+                           f"to one expert, capacity {cap})")
+        delta = (fp - dp).abs().max(dim=-1).values
+        worst = max(worst, float(delta.max()))
+        differ = (fi.sort(-1).values != di.sort(-1).values).any(-1)
+        ranked = fp.sort(-1, descending=True).values
+        gap = ranked[:, k - 1] - ranked[:, k]
+        unexplained = differ & (gap > 2 * delta)
+        check(not bool(unexplained.any()),
+              f"{name}: layer {layer}: routing differs at positions "
+              f"{unexplained.nonzero().flatten().tolist()[:8]} where no "
+              f"tie explains it")
+        ties += [{"layer": layer, "position": int(i), "gap": float(gap[i]),
+                  "prob_delta": float(delta[i])}
+                 for i in differ.nonzero().flatten().tolist()]
+        flipped = differ if flipped is None else flipped | differ
+    check(worst < ROUTER_PROB_TOL, f"{name}: router probabilities differ by "
+                                   f"{worst} between forward and decode")
+    if ties:   # a flip changes the outputs of the later layers at its token
+        check(cfg.blocks()[-1][1] == "moe" and n == 1,
+              f"{name}: a routing tie in a layer other than the last")
+    return {"flipped": flipped, "router_prob_max_delta": worst,
+            "routing_ties": ties}
+
+
+def run_arch_train(torch, name, args, dev):
+    """bf16, remat "full", B 1 x S 2 048: two ``make_train_step`` steps at
+    full width and the depth AdamW's state allows, each inside ``counted``.
+    DeepSeek-V2, where not one MoE layer fits beside AdamW's state, also
+    takes the gradient of its dense layer and one MoE layer (no update)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import model as M
+    from repro_torch.train.loop import data_stream
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    full = get_arch(name)
+    check(full.remat == "full", f"{name}: remat {full.remat}")
+    rest, layers = layer_params(torch, full)
+    n, used = 0, rest
+    for p in layers[:ARCH_TRAIN_MAX_LAYERS.get(name, len(layers))]:
+        if used + p > ARCH_TRAIN_PARAMS:
+            break
+        used, n = used + p, n + 1
+    check(n >= 1, f"{name}: no layer fits beside AdamW's state")
+    cfg = dataclasses.replace(full, n_layers=n)
+    want = train_step_launches(cfg, M.decompose(cfg.blocks()))
+    params, opt = init_train_state(cfg, dev, seed=args.seed)
+    stream = data_stream(cfg, ARCH_TRAIN_B, ARCH_TRAIN_S, seed=args.seed,
+                         device=dev)
+    step = make_train_step(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, auxes, times = [], [], []
+    for i in range(2):
+        batch = next(stream)
+
+        def one():
+            out = step(params, opt, batch)
+            torch.cuda.synchronize(dev)
+            return out
+        t1 = time.perf_counter()
+        (_, opt, metrics), launches = counted(
+            f"{name} train step {i}", one,
+            kernels=tuple(k for k, v in want.items() if v))
+        times.append((time.perf_counter() - t1) * 1e3)
+        got = {k: launches.get(k, 0) for k in want}
+        check(got == want, f"{name} train step {i}: launches {got} != {want}")
+        losses.append(float(metrics["loss"]))
+        auxes.append(float(metrics["aux"]))
+        check(math.isfinite(losses[-1]) and math.isfinite(
+            float(metrics["grad_norm"])), f"{name}: non-finite step {i}")
+        check((auxes[-1] > 0) == bool(moe_layers(cfg)),
+              f"{name}: aux {auxes[-1]} with {moe_layers(cfg)} MoE layers")
+    peak = torch.cuda.max_memory_allocated(dev)
+    out = {"layers": n, "parameters": sum(p.numel() for p in
+                                          params.parameters()),
+           "losses": losses, "aux": auxes, "step_ms": times,
+           "device_peak_bytes": peak, "launches": want}
+    del params, opt, metrics
+    torch.cuda.empty_cache()
+    if moe_layers(cfg) == 0 and full.n_experts:
+        cfg2 = dataclasses.replace(full, n_layers=full.first_k_dense + 1)
+        params = M.init_params(cfg2, dev, seed=args.seed)
+        params.requires_grad_(True)
+        batch = next(data_stream(cfg2, ARCH_TRAIN_B, ARCH_TRAIN_S,
+                                 seed=args.seed, device=dev))
+
+        def grad():
+            total, metrics = M.loss_fn(params, batch, cfg2)
+            total.backward()
+            torch.cuda.synchronize(dev)
+            return metrics
+        metrics, launches = counted(f"{name} gradient with a MoE layer", grad,
+                                    kernels=("flash_attention_bwd",))
+        check(launches.get("flash_attention_bwd", 0) == n_attention(cfg2.blocks()),
+              f"{name}: gradient launches {launches}")
+        finite = all(bool(torch.isfinite(p.grad).all())
+                     for p in params.parameters() if p.grad is not None)
+        moe_grad = float(params.blocks[-1].ffn.w_gate.grad.float().abs()
+                         .max())
+        loss, aux = float(metrics["loss"].detach()), float(
+            metrics["aux"].detach())
+        check(finite and aux > 0 and moe_grad > 0,
+              f"{name}: gradient with a MoE layer: finite {finite}, aux "
+              f"{aux}, max |dw_gate| {moe_grad}")
+        out["moe_gradient"] = {"layers": cfg2.n_layers, "loss": loss,
+                               "aux": aux,
+                               "max_abs_w_gate_grad": moe_grad,
+                               "launches": launches}
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_lm_archs(torch, args, dev):
+    """Each of the nine architectures: prefill, decode against forward and a
+    train step.  Returns (the flash launches of the prefills and the flash
+    backward launches of one train step each, the captured flash inputs by
+    architecture)."""
+    from repro_torch.configs.base import get_arch
+    captured = {}
+    launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+    for name in ARCHS:
+        t0 = time.perf_counter()
+        prefill, cap = run_arch_prefill(torch, name, args, dev)
+        if cap is not None:
+            captured[name] = cap
+        launches["flash_attention"] += prefill["flash_launches"]
+        print(f"[lm_archs] {name} prefill: {json.dumps(prefill)}",
+              flush=True)
+        if get_arch(name).has_decode():
+            decode = run_arch_decode(torch, name, args, dev)
+            print(f"[lm_archs] {name} decode vs forward: "
+                  f"{json.dumps(decode)}", flush=True)
+        else:
+            print(f"[lm_archs] {name} decode: none (encoder-only: no decode "
+                  f"step)", flush=True)
+        train = run_arch_train(torch, name, args, dev)
+        launches["flash_attention_bwd"] += train["launches"][
+            "flash_attention_bwd"]
+        print(f"[lm_archs] {name} train: {json.dumps(train)}; "
+              f"{time.perf_counter() - t0:.3f}s for the architecture",
+              flush=True)
+    return launches, captured
+
+
+def time_arch_flash(torch, captured):
+    """flash_attention and its backward at a captured prefill input of a new
+    head dim: the forward held to its plain version by phase 3's rule and by
+    the one-rounding rule, two calls bit-equal, timed (``time_flash``); the
+    backward on the kernel's own o and lse with a dO drawn from a fixed
+    seed, held and timed as lm_train's (``time_flash_bwd``), the plain
+    version in its default 512-row blocks."""
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    (q, k, v), kw = captured
+    causal, window = kw["causal"], kw["window"]
+    err, tol, ok = flash_err(torch, flash_ops, q, k, v, causal, window)
+    check(ok, f"flash at {list(q.shape)}/{list(v.shape)}: kernel != plain "
+              f"by phase 3's rule (max abs err {err}, tolerance {tol})")
+    first, again = (flash_kernel.flash_attention(q, k, v, **kw)
+                    for _ in range(2))
+    check(torch.equal(first, again), "flash: two calls differ")
+    del first, again
+    err, tol, fwd = time_flash(torch, captured)
+    fwd.update({"max_abs_err": err, "tolerance": tol,
+                "phase3_rule_held": True, "repeat_equal": True})
+    o, lse = flash_kernel.flash_attention(q, k, v, lse=True, **kw)
+    gen = torch.Generator(device=q.device).manual_seed(1234)
+    do = torch.randn(o.shape, generator=gen, device=q.device).to(q.dtype)
+    err_b, tol_b, bwd = time_flash_bwd(
+        torch, ((q, k, v, o, lse, do), kw), plain_blocks=(512, 512))
+    bwd.update({"max_abs_err": err_b, "tolerance": tol_b,
+                "do": "N(0, 1) from seed 1234"})
+    return fwd, bwd
+
+
 def band_mask(torch, sq, skv, causal, window, device):
     """[Sq, Skv] boolean: the pairs the kernels' mask keeps."""
     i = torch.arange(sq, device=device)[:, None]
@@ -2270,7 +2777,8 @@ def shares(torch, got, want, rel, abs_of_max):
     return out
 
 
-def captured_flash_bwd_check(torch, q, k, v, o, lse, g, causal, window):
+def captured_flash_bwd_check(torch, q, k, v, o, lse, g, causal, window,
+                             plain_blocks=(64, 32)):
     """The bf16 backward kernel at lm_train's inputs with output gradient
     ``g`` (already unit-scaled), held (1) to its formula in dense float32
     and (2) through the autograd op to the plain version's autograd (see
@@ -2301,7 +2809,8 @@ def captured_flash_bwd_check(torch, q, k, v, o, lse, g, causal, window):
     op, op_again = (grads_of(lambda *t: flash_ops.flash_attention(*t, **kw),
                              (q, k, v), g) for _ in range(2))
     plain = grads_of(lambda *t: flash_ops.flash_attention(
-        *t, block_q=64, block_k=32, backend="ref", **kw), (q, k, v), g)
+        *t, block_q=plain_blocks[0], block_k=plain_blocks[1], backend="ref",
+        **kw), (q, k, v), g)
     autograd = shares(torch, op, plain, CAPTURED_BWD_REL,
                       CAPTURED_BWD_ABS_OF_MAX)
     equal = equal and all(torch.equal(a, b) for a, b in zip(op, op_again))
@@ -2314,7 +2823,7 @@ def captured_flash_bwd_check(torch, q, k, v, o, lse, g, causal, window):
     return {"formula": formula, "autograd": autograd}, share, equal
 
 
-def time_flash_bwd(torch, captured):
+def time_flash_bwd(torch, captured, plain_blocks=(64, 32)):
     """The backward kernel at lm_train's first backward call (the last
     local layer's q, k, v, o, lse and dO), that dO brought to a unit max by
     a power of two: against its dense float32 formula, with the limit shown
@@ -2331,7 +2840,7 @@ def time_flash_bwd(torch, captured):
     causal, window = kw["causal"], kw["window"]
     g, exponent = unit_scaled(do)
     readings, share, equal = captured_flash_bwd_check(
-        torch, q, k, v, o, lse, g, causal, window)
+        torch, q, k, v, o, lse, g, causal, window, plain_blocks)
     err = max(r["max_abs_err"] for part in readings.values()
               for r in part.values())
     check(share <= 1.0 and equal,
@@ -2649,7 +3158,37 @@ def main() -> int:
     phase("train_loop", t0, run_train_loop(torch, args, dev))
 
     t0 = time.perf_counter()
+    arch_launches, arch_captured = run_lm_archs(torch, args, dev)
+    phase("lm_archs", t0, f"{len(ARCHS)} architectures at full width: bf16 "
+                          f"prefills of B {ARCH_PREFILL_B} x S "
+                          f"{ARCH_PREFILL_S}, one flash launch per attention "
+                          f"layer and 0 plain-version calls in each; float32 "
+                          f"decode within {DECODE_TOL} of forward at S "
+                          f"{ARCH_DECODE_S}; bf16 train steps of B "
+                          f"{ARCH_TRAIN_B} x S {ARCH_TRAIN_S}, finite, with "
+                          f"the exact flash launches; over all: "
+                          f"{arch_launches}")
+
+    t0 = time.perf_counter()
     report += lm_timing(torch, captured, lm_errs)
+    new_dims = {"flash_attention": [], "flash_attention_bwd": []}
+    for name, cap in arch_captured.items():
+        fwd, bwd = time_arch_flash(torch, cap)
+        for key, part in (("flash_attention", fwd),
+                          ("flash_attention_bwd", bwd)):
+            part["architecture"] = name
+            new_dims[key].append(part)
+            print(f"[{key}_new_head_dims] {name} at {part['shape']}: "
+                  f"{part['ms']:.4f} ms a call, bound {part['bound_ms']:.4f} "
+                  f"ms ({part['bound_by']}), plain {part['plain_ms']:.3f} ms, "
+                  f"library {part['library_ms']:.4f} ms, max abs err "
+                  f"{part['max_abs_err']:.4g}, worst error "
+                  f"{part['max_err_over_limit']:.3f} of its limit, two calls "
+                  f"bit-equal", flush=True)
+    for entry in report:
+        if entry["name"] in new_dims:
+            entry["new_head_dims"] = new_dims[entry["name"]]
+            entry["lm_archs_launches"] = arch_launches[entry["name"]]
     phase("lm_timing", t0, "flash_attention and lru_scan within tolerance "
                            "of their plain versions on the inputs captured "
                            "from the prefill's first local and first rglru "
@@ -2662,7 +3201,10 @@ def main() -> int:
                            "of 5; the backward kernels likewise on lm_train's "
                            "first backward inputs, their plain versions' and "
                            "scaled_dot_product_attention's backward as "
-                           "forward + backward minus forward")
+                           "forward + backward minus forward; flash and its "
+                           "backward the same way at HuBERT's (80, 80) and "
+                           "DeepSeek-V2's (192, 128) first-layer prefill "
+                           "inputs")
     phase("total", t_start, "wall time of the whole smoke, build included")
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {

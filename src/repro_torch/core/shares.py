@@ -102,3 +102,15 @@ def optimize_shares(dim_sizes: Sequence[float], k: int,
     return SharePlan(shares=best, k=k, cost=best_cost,
                      fractional=frac, fractional_cost=fcost)
 
+
+
+def mesh_shares_for_training(batch_comm: float, model_comm: float,
+                             k: int) -> SharePlan:
+    """Reuse of the paper's optimizer for mesh-axis selection.
+
+    Treat DP-replicated bytes (per model-shard) and TP-replicated bytes (per
+    data-shard) as two 'dimension sizes'; the optimizer returns the
+    (data, model) axis split of k chips minimizing summed collective bytes
+    (the port's ``perf_options.virtual_grid`` takes such a split).
+    """
+    return optimize_shares([batch_comm, model_comm], k)

@@ -29,7 +29,7 @@
 //
 // bfloat16: flash_attention_mma_kernel, on the tensor cores.
 //   - One block per (q tile, batch*head); each warp owns 16 q rows: 4 warps
-//     (64 rows) at D <= 128, 8 warps (128 rows) at D = 256, where k and v
+//     (64 rows) at D < 256, 8 warps (128 rows) at D = 256, where k and v
 //     tiles take most of shared memory and 8 warps share them.
 //   - S = Q K^T and O += P V are mma.sync.m16n8k16 bf16 products with float32
 //     accumulators, their fragments read from shared memory by ldmatrix
@@ -38,6 +38,9 @@
 //     <= 168 a thread); at D = Dv = 256 that would be 224 of 255 registers,
 //     so Q is read again from shared memory at each k step instead.
 //   - The scale 1/sqrt(D) multiplies S in float32 (exact for D 16, 64, 256).
+//   - P V takes V in n8 tiles of 8 columns, two a step (ldmatrix.x4.trans);
+//     a Dv that is an odd number of n8 tiles (Dv = 8, the reduced MLA's)
+//     takes its last tile alone (ldmatrix.x2.trans).
 //     The online-softmax step runs on the S fragments in registers: row max
 //     and nothing else crosses the quad of lanes that holds a row (two
 //     shuffles); the row sum l is kept per lane and summed at the end.
@@ -62,7 +65,8 @@
 //     D = Dv = 256 that is 202 752 bytes with BQ 128, so one block of 8 warps
 //     runs per SM; two blocks would need 2 x 135 168 bytes for the k/v rings
 //     alone, more than the SM's 228 KB.  At D = Dv = 128: 87 040 bytes, two
-//     blocks per SM.
+//     blocks per SM; at D = 192, Dv = 128 (MLA): 111 616 bytes, two blocks
+//     per SM, Q in registers (48 + 64 + 32 = 144 of the 168).
 //   - Bounded by the tensor cores' mma.sync rate and by shared memory: each
 //     S step reads 512 bytes of K for 2 products.  wgmma, TMA and warp
 //     specialisation are the known next steps.
@@ -112,6 +116,12 @@ constexpr int kBQ = 64;        // query rows of a block
 constexpr int kBK = 32;        // keys of a kv tile (one per lane in S = QK^T)
 constexpr int kThreads = 256;  // 8 warps
 
+// the largest power of two <= 32 that divides n: the threads that split a
+// row of n accumulators (32 for Dv 128 or 192, 16 for Dv 80, 8 for Dv 8)
+__host__ __device__ constexpr int pow2_divisor(int n) {
+  return n % 32 == 0 ? 32 : n % 16 == 0 ? 16 : n % 8 == 0 ? 8 : n % 4 == 0 ? 4 : 1;
+}
+
 template <int D, int DV>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (static_cast<size_t>(kBQ) * (D + 4) +
@@ -126,7 +136,7 @@ flash_attention_kernel(const Params p) {
   static_assert(D % 4 == 0, "float4 reads of q and k rows");
   constexpr int kRow = D + 4;                  // q/k row stride (floats)
   constexpr int kProw = kBK + 1;               // score row stride
-  constexpr int kTx = DV < 32 ? DV : 32;       // P.V: threads along Dv
+  constexpr int kTx = pow2_divisor(DV);        // P.V: threads along Dv
   constexpr int kTy = kThreads / kTx;          //       threads along rows
   constexpr int kRpt = kBQ / kTy;              //       rows per thread
   constexpr int kCpt = DV / kTx;               //       columns per thread
@@ -332,6 +342,13 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
 }
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr));
+}
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
                                                   uint32_t addr) {
   asm volatile(
@@ -390,7 +407,7 @@ template <int D, int DV>
 __global__ void __launch_bounds__(MmaShape<D, DV>::kThreads)
 flash_attention_mma_kernel(const Params p) {
   using S = MmaShape<D, DV>;
-  static_assert(D % 16 == 0 && DV % 16 == 0, "mma tiles of 16");
+  static_assert(D % 16 == 0 && DV % 8 == 0, "mma k16 tiles of D, n8 of Dv");
   constexpr int kQS = S::kQS, kVS = S::kVS, kBQ = S::kBQ;
   constexpr int kNS = kMmaBK / 8;  // n8 tiles of S across the kv tile
   constexpr int kNO = DV / 8;      // n8 tiles of O across Dv
@@ -570,6 +587,12 @@ flash_attention_mma_kernel(const Params p) {
           mma_bf16(o[2 * np], pl, bv[0], bv[1]);
           mma_bf16(o[2 * np + 1], pl, bv[2], bv[3]);
         }
+        if constexpr (kNO % 2 == 1) {  // the last n8 tile alone
+          uint32_t bv[2];
+          ldmatrix_x2_trans(bv, v_addr + (kk * 16 * kVS + (kNO - 1) * 8) * 2);
+          mma_bf16(o[kNO - 1], ph, bv[0], bv[1]);
+          mma_bf16(o[kNO - 1], pl, bv[0], bv[1]);
+        }
       }
     }
     __syncthreads();  // every warp is done with this stage
@@ -632,12 +655,15 @@ cudaError_t dispatch(const Params& p, int batch, int d, int dv,
 #define FLASH_CASE(D_, DV_) \
   if (d == D_ && dv == DV_) return launch<T, D_, DV_>(p, batch, s);
   FLASH_CASE(16, 16)
+  FLASH_CASE(16, 8)
   FLASH_CASE(32, 32)
   FLASH_CASE(32, 16)
   FLASH_CASE(64, 64)
   FLASH_CASE(64, 32)
+  FLASH_CASE(80, 80)
   FLASH_CASE(128, 128)
   FLASH_CASE(128, 64)
+  FLASH_CASE(192, 128)
   FLASH_CASE(256, 256)
   FLASH_CASE(256, 128)
 #undef FLASH_CASE
@@ -918,7 +944,7 @@ __device__ __forceinline__ void load_row_stats(const BwdParams& p,
 // columns x + TX j
 template <int COLS>
 struct Split {
-  static constexpr int TX = COLS < 32 ? COLS : 32;
+  static constexpr int TX = pow2_divisor(COLS);
   static constexpr int TY = kThreads / TX;
   static constexpr int R = kB / TY;
   static constexpr int C = COLS / TX;
@@ -1153,12 +1179,15 @@ cudaError_t dispatch(const BwdParams& p, int d, int dv, cudaStream_t s) {
 #define FLASH_BWD_CASE(D_, DV_) \
   if (d == D_ && dv == DV_) return launch<T, D_, DV_>(p, s);
   FLASH_BWD_CASE(16, 16)
+  FLASH_BWD_CASE(16, 8)
   FLASH_BWD_CASE(32, 32)
   FLASH_BWD_CASE(32, 16)
   FLASH_BWD_CASE(64, 64)
   FLASH_BWD_CASE(64, 32)
+  FLASH_BWD_CASE(80, 80)
   FLASH_BWD_CASE(128, 128)
   FLASH_BWD_CASE(128, 64)
+  FLASH_BWD_CASE(192, 128)
   FLASH_BWD_CASE(256, 256)
   FLASH_BWD_CASE(256, 128)
 #undef FLASH_BWD_CASE

@@ -62,8 +62,9 @@ BWD_INSTANTIATIONS = {torch.float32: "flash_attention_bwd_float32",
 SYMBOLS.update({s: (PTR,) * 10 + (I64,) * 15 + (I32,) * 9 + (F32, PTR)
                 for s in BWD_INSTANTIATIONS.values()})
 #: (D, Dv) pairs the source instantiates, forward and backward
-HEAD_DIMS = frozenset({(16, 16), (32, 32), (32, 16), (64, 64), (64, 32),
-                       (128, 128), (128, 64), (256, 256), (256, 128)})
+HEAD_DIMS = frozenset({(16, 16), (16, 8), (32, 32), (32, 16), (64, 64),
+                       (64, 32), (80, 80), (128, 128), (128, 64), (192, 128),
+                       (256, 256), (256, 128)})
 MAX_GRID_Y = 65535
 
 LIB = _build.Library(NAME, SOURCE, SYMBOLS, kernels=(NAME, BWD_NAME))

@@ -5,9 +5,12 @@
 
 Random weights and prompts from ``--seed``.  The prompt goes in token by
 token through ``serve_step`` (as in the reference's launcher), then greedy
-decode.  Runs on the CUDA device by default (``--device cpu`` to run on the
-CPU); ``--reduced`` (the default) is the tiny same-topology configuration,
-``--full`` the published one.  Prints tokens/s beside the device's name.
+decode.  Every architecture with a decode step serves; an encoder-only one
+(hubert-xlarge) is refused with the reference's reason, "encoder-only: no
+decode step".  Runs on the CUDA device by default (``--device cpu`` to run
+on the CPU); ``--reduced`` (the default) is the tiny same-topology
+configuration, ``--full`` the published one.  Prints tokens/s beside the
+device's name.
 """
 from __future__ import annotations
 
@@ -30,16 +33,18 @@ def main(argv=None):
 
     import torch
 
-    from repro_torch.configs.base import get_arch
+    from repro_torch.configs.base import SHAPES, cell_is_runnable, get_arch
     from repro_torch.launch.mesh import resolve_device
     from repro_torch.models import model as M
     from repro_torch.train.step import make_serve_step
 
-    dev = resolve_device(args.device)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    assert cfg.has_decode(), f"{cfg.name} is encoder-only"
+    runnable, why = cell_is_runnable(cfg, SHAPES["decode_32k"])
+    if not runnable:
+        raise SystemExit(f"{cfg.name}: {why}")
+    dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = M.init_params(cfg, dev, generator=gen)
     total = args.prompt_len + args.gen_len

@@ -5,12 +5,14 @@
         [--ckpt-every 20] [--fail-at STEP] [--lr 3e-4] [--device cpu] \
         [--seed 0]
 
-Trains on the synthetic cyclic stream (``train/loop.py::data_stream``) from
-random parameters drawn from ``--seed``.  ``--reduced`` (the default) is the
-tiny same-topology configuration, ``--full`` the published one;
-``--layers`` cuts the depth to its first N layers (one card holds the
-float32 optimizer state of a few layers at full width, not of all 26 at
-once with a large batch).  Checkpoints and auto-resume via ``--ckpt-dir``;
+Any of the ten architectures (``configs.base.ARCH_IDS``; the frontend ones
+train on random frames or patches).  Trains on the synthetic cyclic stream
+(``train/loop.py::data_stream``) from random parameters drawn from
+``--seed``.  ``--reduced`` (the default) is the tiny same-topology
+configuration, ``--full`` the published one; ``--layers`` cuts the depth to
+its first N layers (one card holds the float32 optimizer state of a few
+layers at full width, not of a whole model at once with a large batch).
+Checkpoints and auto-resume via ``--ckpt-dir``;
 ``--fail-at`` injects a failure at that step to demonstrate the restart.
 Runs on the CUDA device by default (``--device cpu`` to run on the CPU).
 """

@@ -5,7 +5,10 @@ The reference stacks the parameters of its repeated unit of blocks along a
 leading reps axis (``params["body"]``); the port keeps one ``LayerBlock``
 per layer, so ``body`` is unstacked: unit block ``i`` of rep ``r`` is layer
 ``len(prefix) + r * len(unit) + i``.  Names and layouts are the same on both
-sides.  The tests use this so that both packages compute one function.
+sides, down to the nested trees (an MoE layer's ``shared`` experts, RWKV's
+time- and channel-mix) and the frontends' ``frontend_proj`` and
+``pos_embed``.  The tests use this so that both packages compute one
+function.
 
 Any tree of the parameters' structure (the reference's gradients, its AdamW
 moments) maps the same way onto the port's parameter names
@@ -41,13 +44,17 @@ def _index(tree, r: int):
     return np.asarray(tree)[r]
 
 
-def _load(module: torch.nn.Module, tree: Dict, where: str) -> None:
+def _load(module: torch.nn.Module, tree: Dict, where: str,
+          skip=()) -> None:
     """Copy ``tree``'s arrays into ``module``'s parameters of the same
-    names, in each parameter's dtype; raise on a missing, extra or
-    misshapen entry."""
+    names, and its sub-trees into the submodules of the same names, each
+    parameter in its own dtype; raise on a missing, extra or misshapen
+    entry.  Children named in ``skip`` are left out."""
     params = dict(module.named_parameters(recurse=False))
-    if set(params) != set(tree):
-        raise KeyError(f"{where}: the port has {sorted(params)}, the "
+    children = {n: c for n, c in module.named_children() if n not in skip}
+    if set(params) | set(children) != set(tree):
+        raise KeyError(f"{where}: the port has "
+                       f"{sorted(set(params) | set(children))}, the "
                        f"reference {sorted(tree)}")
     for name, p in params.items():
         arr = np.array(tree[name], dtype=np.float32)
@@ -56,6 +63,8 @@ def _load(module: torch.nn.Module, tree: Dict, where: str) -> None:
                              f"port's {tuple(p.shape)}")
         with torch.no_grad():
             p.copy_(torch.from_numpy(arr))
+    for name, child in children.items():
+        _load(child, tree[name], f"{where}.{name}")
 
 
 def named_from_reference(np_tree: Dict, cfg: ArchConfig,
@@ -68,9 +77,11 @@ def named_from_reference(np_tree: Dict, cfg: ArchConfig,
     for name, p in model.named_parameters():
         parts = name.split(".")
         if parts[0] == "blocks":
-            leaf = trees[int(parts[1])][parts[2]][parts[3]]
+            leaf, parts = trees[int(parts[1])], parts[2:]
         else:
-            leaf = np_tree[parts[0]][parts[1]]
+            leaf = np_tree
+        for part in parts:
+            leaf = leaf[part]
         arr = np.array(leaf, dtype=np.float32)
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{name}: shape {arr.shape} vs the port's "
@@ -100,15 +111,13 @@ def params_from_reference(np_params: Dict, cfg: ArchConfig,
     (``np_params``: the reference's ``init_params`` output with every leaf
     a numpy array; bfloat16 leaves may be ml_dtypes arrays)."""
     model = init_params(cfg, device)
-    _load(model.embed, np_params["embed"], "embed")
-    _load(model.out_norm, np_params["out_norm"], "out_norm")
-    if model.head is not None:
-        _load(model.head, np_params["head"], "head")
+    _load(model, {k: v for k, v in np_params.items()
+                  if k not in ("prefix", "body", "suffix")}, "params",
+          skip=("blocks",))
     trees = _layer_trees(np_params, cfg)
     if len(trees) != len(model.blocks):
         raise ValueError(f"{len(trees)} reference layers for "
                          f"{len(model.blocks)} port layers")
     for li, (block, tree) in enumerate(zip(model.blocks, trees)):
-        for part in ("norm1", "mixer", "norm2", "ffn"):
-            _load(getattr(block, part), tree[part], f"layer {li}.{part}")
+        _load(block, tree, f"layer {li}")
     return model

@@ -11,17 +11,18 @@ PyTorch runs eagerly, so the port loops over the layers, and uses
 checkpointing (``cfg.remat``) wraps, the unit the reference's scan
 checkpoints.
 
-Ported mixers: ``attn``, ``local``, ``enc`` and ``rglru``, with the ``mlp``
-ffn; ``configs.get_arch`` raises ``NotImplementedError`` for the
-architectures that need the others until ROADMAP Q9c brings them.
-``forward`` is differentiable: both kernels have a backward kernel on the
+Every mixer of the reference (``attn``, ``local``, ``enc``, ``mla``,
+``rglru``, ``rwkv``) and every ffn (``mlp``, ``moe``, ``cmix``), and both
+modality frontends: ``patch`` (precomputed patch embeddings projected and
+put before the text, logits over the text positions only) and ``frame``
+(precomputed frame embeddings projected, plus a learned position
+embedding; encoder-only, no decode step).  ``forward`` returns ``(logits,
+aux)``, aux the MoE layers' summed auxiliary loss (float32; 0 without
+MoE), and is differentiable: both LM kernels have a backward kernel on the
 card.  A caller that wants no gradient (a prefill, serving) runs it under
 ``torch.inference_mode()``; parameters are frozen until a trainer asks for
 gradients (``train.step.init_train_state``).  ``decode_step`` runs under
-``torch.inference_mode()`` itself.  ``forward`` returns the logits alone:
-the reference's second output, the MoE auxiliary loss, is 0 for every
-ported block and comes back with MoE; ``loss_fn`` reports it as a zero
-tensor.
+``torch.inference_mode()`` itself.
 """
 from __future__ import annotations
 
@@ -35,21 +36,19 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig, Block
+from repro_torch.distributed import perf_options
 from repro_torch.launch.mesh import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.common import (MLP, Embed, Norm, apply_mlp,
                                        apply_norm, dense_init, embed_tokens,
-                                       lm_logits)
+                                       lm_logits, normal)
 
 ATTN_MIXERS = ("attn", "local", "enc")
 AUX_COEF = 0.01
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Q9c: the MLA, MoE and RWKV6 "
-        f"families and the modality frontends)")
 
 
 # ---------------------------------------------------------------------------
@@ -94,25 +93,47 @@ class LayerBlock(nn.Module):
 
     def __init__(self, cfg, block: Block, generator, device):
         super().__init__()
-        mixer, _ = block
+        mixer, ffn = block
         self.norm1 = Norm(cfg, device)
         if mixer in ATTN_MIXERS:
             self.mixer = attn.Attention(cfg, generator, device)
+        elif mixer == "mla":
+            self.mixer = mla_mod.MLA(cfg, generator, device)
         elif mixer == "rglru":
             self.mixer = rglru_mod.RGLRU(cfg, generator, device)
+        elif mixer == "rwkv":
+            self.mixer = rwkv_mod.RWKVTimeMix(cfg, generator, device)
         else:
-            raise _not_ported(f"mixer {mixer!r}")
+            raise ValueError(mixer)
         self.norm2 = Norm(cfg, device)
-        self.ffn = MLP(cfg, cfg.d_ff, generator, device)
+        if ffn == "mlp":
+            self.ffn = MLP(cfg, cfg.d_ff, generator, device)
+        elif ffn == "moe":
+            self.ffn = moe_mod.MoE(cfg, generator, device)
+        elif ffn == "cmix":
+            self.ffn = rwkv_mod.RWKVChannelMix(cfg, generator, device)
+        else:
+            raise ValueError(ffn)
 
 
 class LM(nn.Module):
-    """The whole model's parameters: ``embed.table [V, d]``, ``blocks`` in
+    """The whole model's parameters: ``embed.table [V, d]`` (not with the
+    ``frame`` frontend), ``frontend_proj.w [frontend_dim, d]`` (with either
+    frontend), ``pos_embed [max_position, d]`` (``frame``), ``blocks`` in
     layer order, ``out_norm`` and, untied, ``head.w_out [d, V]``."""
 
     def __init__(self, cfg: ArchConfig, generator, device):
         super().__init__()
-        self.embed = Embed(cfg, generator, device)
+        self.embed = (Embed(cfg, generator, device)
+                      if cfg.frontend in (None, "patch") else None)
+        if cfg.frontend is not None:
+            self.frontend_proj = nn.Module()
+            self.frontend_proj.w = dense_init(cfg.frontend_dim, cfg.d_model,
+                                              generator, device,
+                                              cfg.param_dtype)
+        if cfg.frontend == "frame":
+            self.pos_embed = normal((cfg.max_position, cfg.d_model),
+                                    generator, device, cfg.param_dtype, 0.02)
         self.blocks = nn.ModuleList(
             [LayerBlock(cfg, b, generator, device) for b in cfg.blocks()])
         self.out_norm = Norm(cfg, device)
@@ -125,7 +146,7 @@ class LM(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.embed.table.device
+        return next(self.parameters()).device
 
 
 def init_params(cfg: ArchConfig, device=None,
@@ -147,18 +168,28 @@ def init_params(cfg: ArchConfig, device=None,
 # forward (prefill)
 # ---------------------------------------------------------------------------
 
-def apply_block(x, p: LayerBlock, cfg, block: Block):
-    """Pre-LN residual block (prefill)."""
-    mixer, _ = block
+def apply_block(x, p: LayerBlock, cfg, block: Block, aux):
+    """Pre-LN residual block (train/prefill).  Returns (x, aux)."""
+    mixer, ffn = block
     h = apply_norm(x, p.norm1, cfg)
-    if mixer == "rglru":
-        h, _ = rglru_mod.rglru_forward(h, p.mixer, cfg)
-    else:
+    if mixer in ATTN_MIXERS:
         h, _ = attn.attention_forward(h, p.mixer, cfg, mixer)
+    elif mixer == "mla":
+        h, _ = mla_mod.mla_forward(h, p.mixer, cfg)
+    elif mixer == "rglru":
+        h, _ = rglru_mod.rglru_forward(h, p.mixer, cfg)
+    elif mixer == "rwkv":
+        h, _ = rwkv_mod.rwkv_tmix(h, p.mixer, cfg)
     x = x + h
     h = apply_norm(x, p.norm2, cfg)
-    h = apply_mlp(h, p.ffn, cfg)
-    return x + h
+    if ffn == "mlp":
+        h = apply_mlp(h, p.ffn, cfg)
+    elif ffn == "moe":
+        h, a = moe_mod.apply_moe(h, p.ffn, cfg)
+        aux = aux + a
+    elif ffn == "cmix":
+        h, _ = rwkv_mod.rwkv_cmix(h, p.ffn, cfg)
+    return x + h, aux
 
 
 def _saves_2d_products(ctx, op, *args, **kwargs):
@@ -172,24 +203,39 @@ def _saves_2d_products(ctx, op, *args, **kwargs):
 
 
 def _remat(fn, cfg: ArchConfig):
-    """``fn`` under ``cfg.remat``: ``none`` as it is, ``full`` checkpointed
-    (its activations dropped and recomputed in the backward), ``dots``
-    checkpointed but for the matrix products' outputs.  Non-reentrant, as
-    ``jax.checkpoint`` is."""
-    if cfg.remat == "none":
+    """``fn`` under ``cfg.remat`` (``"dots"`` whenever ``perf_options
+    ("remat_dots")`` is on, as in the reference): ``none`` as it is,
+    ``full`` checkpointed (its activations dropped and recomputed in the
+    backward), ``dots`` checkpointed but for the matrix products' outputs.
+    Non-reentrant, as ``jax.checkpoint`` is."""
+    remat = "dots" if perf_options.enabled("remat_dots") else cfg.remat
+    if remat == "none":
         return fn
-    if cfg.remat == "full":
+    if remat == "full":
         return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
-    if cfg.remat == "dots":
+    if remat == "dots":
         ctx_fn = functools.partial(ckpt.create_selective_checkpoint_contexts,
                                    _saves_2d_products)
         return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
                                  context_fn=ctx_fn)
-    raise ValueError(f"remat must be none, full or dots, got {cfg.remat!r}")
+    raise ValueError(f"remat must be none, full or dots, got {remat!r}")
+
+
+def _embed_inputs(params: LM, batch, cfg):
+    cd = cfg.compute_dtype
+    if cfg.frontend == "frame":
+        x = batch["frames"].to(cd) @ params.frontend_proj.w.to(cd)
+        return x + params.pos_embed[:x.shape[1]].to(cd)[None]
+    if cfg.frontend == "patch":
+        px = batch["patches"].to(cd) @ params.frontend_proj.w.to(cd)
+        tx = embed_tokens(batch["tokens"], params.embed, cfg)
+        return torch.cat([px, tx], dim=1)
+    return embed_tokens(batch["tokens"], params.embed, cfg)
 
 
 def forward(params: LM, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
-    """Returns logits [B,S,V] float32.
+    """Returns (logits [B,S,V] float32, aux float32 scalar); with the
+    ``patch`` frontend the logits cover the text positions only.
 
     The layers of each repetition of ``decompose(cfg.blocks())``'s unit run
     as one checkpointed call under ``cfg.remat``, as the reference's scan
@@ -200,27 +246,31 @@ def forward(params: LM, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
     n_pre, n_unit = len(layout.prefix), len(layout.unit)
     n_body = n_unit * layout.reps
 
-    def run(x, *layers):
+    def run(x, aux, *layers):
         for p, b in layers:
-            x = apply_block(x, p, cfg, b)
-        return x
+            x, aux = apply_block(x, p, cfg, b, aux)
+        return x, aux
 
-    x = embed_tokens(batch["tokens"], params.embed, cfg)
-    x = run(x, *blocks[:n_pre])
+    x = _embed_inputs(params, batch, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = run(x, aux, *blocks[:n_pre])
     unit = _remat(run, cfg) if torch.is_grad_enabled() else run
     for r in range(layout.reps):
-        x = unit(x, *blocks[n_pre + r * n_unit:n_pre + (r + 1) * n_unit])
-    x = run(x, *blocks[n_pre + n_body:])
+        x, aux = unit(x, aux,
+                      *blocks[n_pre + r * n_unit:n_pre + (r + 1) * n_unit])
+    x, aux = run(x, aux, *blocks[n_pre + n_body:])
     x = apply_norm(x, params.out_norm, cfg)
-    return lm_logits(x, params.embed, params.head, cfg)
+    if cfg.frontend == "patch":     # logits only over text positions
+        x = x[:, batch["patches"].shape[1]:]
+    return lm_logits(x, params.embed, params.head, cfg), aux
 
 
 def loss_fn(params: LM, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
-    """Mean next-token cross-entropy over labels >= 0 (others are masked),
-    the reference's ``loss_fn``: returns ``(total, {"loss", "aux"})`` with
-    ``total = loss + AUX_COEF * aux``; ``aux``, the MoE auxiliary loss, is a
-    float32 zero for the ported blocks."""
-    logits = forward(params, batch, cfg)
+    """Mean next-token cross-entropy over labels >= 0 (others are masked;
+    encoder-only: every position's own label), the reference's
+    ``loss_fn``: returns ``(total, {"loss", "aux"})`` with
+    ``total = loss + AUX_COEF * aux``."""
+    logits, aux = forward(params, batch, cfg)
     labels = batch["labels"]
     if not cfg.encoder_only:   # next-token prediction
         logits = logits[:, :-1]
@@ -231,7 +281,6 @@ def loss_fn(params: LM, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
                           reduction="none").view(labels.shape)
     nll = torch.where(valid, nll, torch.zeros((), device=nll.device))
     loss = nll.sum() / valid.sum().clamp(min=1)
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
     return loss + AUX_COEF * aux, {"loss": loss, "aux": aux}
 
 
@@ -241,9 +290,15 @@ def loss_fn(params: LM, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
 
 def init_block_cache(cfg, block: Block, batch: int, length: int, device):
     mixer, _ = block
+    if mixer in ATTN_MIXERS:
+        return {"kv": attn.init_kv_cache(cfg, batch, length, mixer, device)}
+    if mixer == "mla":
+        return {"kv": mla_mod.init_mla_cache(cfg, batch, length, device)}
     if mixer == "rglru":
         return {"rec": rglru_mod.init_rglru_cache(cfg, batch, device)}
-    return {"kv": attn.init_kv_cache(cfg, batch, length, mixer, device)}
+    if mixer == "rwkv":
+        return rwkv_mod.init_rwkv_cache(cfg, batch, device)
+    raise ValueError(mixer)
 
 
 @torch.inference_mode()
@@ -257,31 +312,51 @@ def init_cache(cfg: ArchConfig, batch: int, length: int,
 
 
 def apply_block_decode(x, p: LayerBlock, cfg, block: Block, cache, pos):
-    mixer, _ = block
+    mixer, ffn = block
     h = apply_norm(x, p.norm1, cfg)
     if mixer in ("attn", "local"):
         h, kv = attn.attention_decode(h, p.mixer, cfg, cache["kv"], pos,
                                       mixer)
         new_cache = {"kv": kv}
+    elif mixer == "mla":
+        h, kv = mla_mod.mla_decode(h, p.mixer, cfg, cache["kv"], pos)
+        new_cache = {"kv": kv}
     elif mixer == "rglru":
         h, rec = rglru_mod.rglru_decode(h, p.mixer, cfg, cache["rec"])
         new_cache = {"rec": rec}
+    elif mixer == "rwkv":
+        h, tmix = rwkv_mod.rwkv_tmix(h, p.mixer, cfg, state=cache["tmix"])
+        new_cache = {"tmix": tmix}
     else:
         raise ValueError(f"no decode step for mixer {mixer!r}")
     x = x + h
     h = apply_norm(x, p.norm2, cfg)
-    h = apply_mlp(h, p.ffn, cfg)
+    if ffn == "mlp":
+        h = apply_mlp(h, p.ffn, cfg)
+    elif ffn == "moe":
+        h, _ = moe_mod.apply_moe(h, p.ffn, cfg)
+    elif ffn == "cmix":
+        h, cm = rwkv_mod.rwkv_cmix(h, p.ffn, cfg, state=cache["cmix"])
+        new_cache["cmix"] = cm
     return x + h, new_cache
 
 
 @torch.inference_mode()
 def decode_step(params: LM, cache: List[dict], tokens, pos: int,
-                cfg: ArchConfig):
+                cfg: ArchConfig, embeds=None):
     """tokens [B,1]; pos a Python int.  Returns (logits [B,1,V], cache).
 
-    Attention caches are updated in place (see ``attention_decode``); the
-    returned list holds every layer's current cache."""
-    x = embed_tokens(tokens, params.embed, cfg)
+    ``embeds`` [B,1,d_model] overrides the token embedding — how a VLM's
+    patch positions are prefilled through the decode path (pixtral
+    serving).  Attention caches are updated in place (see
+    ``attention_decode``); the returned list holds every layer's current
+    cache."""
+    if cfg.frontend == "frame":
+        raise ValueError("encoder-only archs have no decode step")
+    if embeds is not None:
+        x = embeds.to(cfg.compute_dtype)
+    else:
+        x = embed_tokens(tokens, params.embed, cfg)
     new_cache = []
     for p, b, c in zip(params.blocks, cfg.blocks(), cache):
         x, c = apply_block_decode(x, p, cfg, b, c, pos)
@@ -296,9 +371,27 @@ def decode_step(params: LM, cache: List[dict], tokens, pos: int,
 
 def make_dummy_batch(cfg: ArchConfig, batch: int, seq: int,
                      generator: torch.Generator, device=None):
-    """Token inputs and labels, uniform over the vocab (int64)."""
+    """Random inputs and labels of ``seq`` positions, drawn on the
+    generator's device and moved to ``device``: token ids uniform over the
+    vocab (int64); for the ``frame`` frontend, N(0, 1) float32 frames
+    ``[B, S, frontend_dim]``; for ``patch``, ``seq // patch_frac`` (at
+    least 1) N(0, 1) patches ahead of the text, tokens and labels over the
+    rest."""
     dev = resolve_device(device)
-    draw = [torch.randint(0, cfg.vocab_size, (batch, seq),
-                          generator=generator, device=generator.device)
-            .to(dev) for _ in range(2)]
-    return {"tokens": draw[0], "labels": draw[1]}
+
+    def ids(n):
+        return torch.randint(0, cfg.vocab_size, (batch, n),
+                             generator=generator,
+                             device=generator.device).to(dev)
+
+    def normal_(n):
+        return torch.randn((batch, n, cfg.frontend_dim), generator=generator,
+                           device=generator.device).to(dev)
+
+    if cfg.frontend == "frame":
+        return {"frames": normal_(seq), "labels": ids(seq)}
+    if cfg.frontend == "patch":
+        n_patch = max(1, seq // cfg.patch_frac)
+        return {"patches": normal_(n_patch), "tokens": ids(seq - n_patch),
+                "labels": ids(seq - n_patch)}
+    return {"tokens": ids(seq), "labels": ids(seq)}

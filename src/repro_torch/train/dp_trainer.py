@@ -39,7 +39,7 @@ def make_compressed_dp_step(cfg: ArchConfig, mesh: VirtualMesh,
     n = mesh.n_workers
 
     def step(params: model_lib.LM, opt_state: Dict, err: Dict, batch: Dict):
-        rows = batch["tokens"].shape[0]
+        rows = batch["labels"].shape[0]
         if rows % n:
             raise ValueError(f"batch of {rows} does not split into {n} "
                              f"equal worker shards")

@@ -22,6 +22,7 @@ from repro_torch.distributed.checkpoint import (latest_step,
                                                 restore_checkpoint,
                                                 save_checkpoint)
 from repro_torch.launch.mesh import resolve_device
+from repro_torch.models import model as model_lib
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.step import init_train_state, make_train_step
 
@@ -40,15 +41,20 @@ def data_stream(cfg: ArchConfig, batch: int, seq: int, seed: int = 0,
                 device=None) -> Iterator[Dict[str, torch.Tensor]]:
     """Learnable synthetic stream: cyclic token sequences with a random
     phase per row (a model that trains at all drives the loss well below
-    ln V), the reference's stream.  The phases are drawn from one explicit
-    CPU ``torch.Generator`` seeded with ``seed``, so its numbers differ from
-    the reference's ``jax.random`` ones (the tests feed both packages the
-    reference's batches); tokens and labels are int64 on ``device``
-    (``None`` = CUDA)."""
+    ln V), the reference's stream; the modality-frontend architectures fall
+    back to random frames or patches (``make_dummy_batch``), as the
+    reference's do.  Draws come from one explicit CPU ``torch.Generator``
+    seeded with ``seed``, so its numbers differ from the reference's
+    ``jax.random`` ones (the tests feed both packages the reference's
+    batches); tokens and labels are int64 on ``device`` (``None`` =
+    CUDA)."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     period = min(cfg.vocab_size - 1, 97)
     while True:
+        if cfg.frontend is not None:
+            yield model_lib.make_dummy_batch(cfg, batch, seq, gen, dev)
+            continue
         start = torch.randint(0, period, (batch, 1), generator=gen)
         toks = ((start + torch.arange(seq)[None, :]) % period + 1).to(dev)
         yield {"tokens": toks, "labels": toks}

@@ -29,7 +29,8 @@ def param_grads(params: model_lib.LM) -> Dict[str, torch.Tensor]:
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig = AdamWConfig()):
     def train_step(params: model_lib.LM, opt_state: Dict, batch: Dict
                    ) -> Tuple[model_lib.LM, Dict, Dict]:
-        """One step on ``batch`` (``tokens``, ``labels`` [B, S]).  Returns
+        """One step on ``batch`` (``tokens`` or the frontend's inputs, and
+        ``labels`` [B, S]).  Returns
         ``(params, opt_state, metrics)``, the metrics float32 scalars on the
         parameters' device."""
         params.requires_grad_(True)

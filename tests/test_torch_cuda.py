@@ -2,7 +2,9 @@
 ``flash_attention``, ``lru_scan``) against their plain versions, a small FCT
 session end to end against the port's numpy ``fct_star`` oracle, and a
 reduced recurrentgemma-2b forward through both LM kernels against the plain
-path.  Imports neither JAX nor the JAX package, so it runs on a GPU machine
+path, and reduced DeepSeek-V2 (MLA), DeepSeekMoE and HuBERT forwards through
+the flash kernel at its new head dims against the same models on the CPU.
+Imports neither JAX nor the JAX package, so it runs on a GPU machine
 that has none; every test skips where there is no CUDA device.
 
 Tolerances: flash 2e-5 in float32 and 4e-2 in bfloat16 (the reference's own,
@@ -208,6 +210,9 @@ def test_session_on_card_equals_oracle(cuda_device, policy):
     (1, 64, 2, 2, 128, 128, True, None),
     (1, 300, 2, 1, 256, 256, True, 100),    # S > window, window % 32 != 0
     (1, 1100, 3, 1, 64, 64, True, 1000),    # several q tiles, band skipping
+    (1, 300, 2, 2, 80, 80, False, None),    # HuBERT's head dim, encoder
+    (1, 300, 2, 2, 192, 128, True, None),   # MLA's D 192, Dv 128
+    (1, 1100, 15, 5, 64, 64, True, None),   # SmolLM's GQA 15/5, no window
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain_on_card(cuda_device, b, s, h, hkv, d, dv,
@@ -427,13 +432,42 @@ def test_reduced_model_forward_through_kernels(cuda_device):
     lru_kernel.LIB.reset_launches()
     flash_ops.reset_path_counts()
     lru_ops.reset_path_counts()
-    got = M.forward(params, {"tokens": tok.to(cuda_device)}, cfg)
+    got, _ = M.forward(params, {"tokens": tok.to(cuda_device)}, cfg)
     torch.cuda.synchronize()
     assert flash_kernel.LAUNCHES["flash_attention"] == 1
     assert lru_kernel.LAUNCHES["lru_scan"] == 2
     assert flash_ops.PATH_COUNTS["ref"] == lru_ops.PATH_COUNTS["ref"] == 0
-    want = M.forward(params.to("cpu"), {"tokens": tok}, cfg)
+    want, _ = M.forward(params.to("cpu"), {"tokens": tok}, cfg)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v2_236b", "deepseek_moe_16b",
+                                  "hubert_xlarge"])
+def test_reduced_arch_forward_through_kernels(cuda_device, arch):
+    """MLA (D 16, Dv 8) with MoE, attention with MoE, and the encoder with
+    the frame frontend at S 1 100: every attention layer through the
+    kernel, against the same model on the CPU (logits 1e-4, aux 1e-5
+    relative)."""
+    import dataclasses
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # HuBERT's learned positions must cover S 1 100
+    cfg = dataclasses.replace(get_arch(arch).reduced(), max_position=2048)
+    params = M.init_params(cfg, cuda_device, seed=3)
+    gen = torch.Generator().manual_seed(4)
+    batch = M.make_dummy_batch(cfg, 2, 1100, gen, "cpu")
+    flash_kernel.LIB.reset_launches()
+    flash_ops.reset_path_counts()
+    with torch.no_grad():
+        got, aux = M.forward(params, {k: v.to(cuda_device)
+                                      for k, v in batch.items()}, cfg)
+    torch.cuda.synchronize()
+    assert flash_kernel.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert flash_ops.PATH_COUNTS["ref"] == 0
+    with torch.no_grad():
+        want, want_aux = M.forward(params.to("cpu"), batch, cfg)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+    torch.testing.assert_close(aux.cpu(), want_aux, atol=0, rtol=1e-5)
+    assert (float(want_aux) > 0) == bool(cfg.n_experts)
 
 
 # -- the FCT serving path on the card ------------------------------------------
@@ -630,6 +664,10 @@ FLASH_GRAD_CASES = [
     (1, 300, 2, 1, 256, 256, True, 100),    # S > window, window % 32 != 0
     (1, 1100, 3, 1, 64, 64, True, 1000),    # several q tiles, band skipping
     (1, 333, 2, 1, 256, 128, False, None),  # encoder D 256, Dv 128, ragged
+    (1, 300, 2, 2, 80, 80, False, None),    # HuBERT's head dim, encoder
+    (1, 300, 2, 2, 192, 128, True, None),   # MLA's D 192, Dv 128
+    (1, 300, 4, 4, 16, 8, True, None),      # the reduced MLA's D 16, Dv 8
+    (1, 1100, 15, 5, 64, 64, True, None),   # SmolLM's GQA 15/5, no window
 ]
 
 

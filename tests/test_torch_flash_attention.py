@@ -39,6 +39,11 @@ CASES = [  # b, s, h, hkv, d, dv, causal, window, block_q, block_k
     # the block, ragged S: rows whose first visited block lies wholly
     # outside their window
     (1, 300, 2, 1, 256, 256, True, 100, 128, 128),
+    # HuBERT's head dim, encoder mask; MLA's (D 192, Dv 128), causal; the
+    # reduced MLA's (D 16, Dv 8)
+    (1, 96, 2, 2, 80, 80, False, None, 32, 32),
+    (1, 96, 2, 2, 192, 128, True, None, 32, 32),
+    (1, 96, 4, 4, 16, 8, True, None, 32, 32),
 ]
 
 
@@ -95,6 +100,7 @@ def test_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="unknown flash_attention backend"):
         ops.flash_attention(q, q, q, backend="pallas")
     assert (16, 16) in kernel.HEAD_DIMS and (256, 256) in kernel.HEAD_DIMS
+    assert {(80, 80), (192, 128), (16, 8)} <= kernel.HEAD_DIMS
     assert kernel.LAUNCHES["flash_attention"] == 0
 
 

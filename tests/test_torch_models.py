@@ -1,4 +1,5 @@
-"""The port's recurrentgemma-2b serving path against the JAX package on the
+"""The port's configurations (all ten, against the JAX package's) and its
+recurrentgemma-2b serving path against the JAX package on the
 CPU: reduced configuration (3 layers rglru, rglru, local; d 64; window 16;
 float32), the reference's ``init_params`` carried across by
 ``params_from_reference``, the same numpy-seeded tokens on both sides.
@@ -15,10 +16,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.base import SHAPES as JSHAPES
+from repro.configs.base import cell_is_runnable as jax_cell_is_runnable
 from repro.configs.base import get_arch as jax_get_arch
 from repro.models import model as JM
 from repro.train.step import make_serve_step as jax_make_serve_step
-from repro_torch.configs.base import ARCH_IDS, get_arch
+from repro_torch.configs.base import (ARCH_IDS, SHAPES, cell_is_runnable,
+                                      get_arch)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.lru_scan import ops as lru_ops
 from repro_torch.models import model as M
@@ -42,26 +46,32 @@ def _tokens(seed, b, s):
         0, CFG.vocab_size, (b, s)).astype(np.int32)
 
 
-def test_config_matches_the_reference():
-    full_j, full_t = jax_get_arch("recurrentgemma-2b"), get_arch(
-        "recurrentgemma-2b")
-    for cj, ct in ((full_j, full_t), (JCFG, CFG)):
+JAX_DTYPES = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_config_matches_the_reference(arch):
+    """Every field of the published and the reduced configuration (dtypes
+    mapped to torch's), the derived block pattern and its decomposition,
+    and which shape cells run, against the JAX package's."""
+    full_j, full_t = jax_get_arch(arch), get_arch(arch.replace("_", "-"))
+    for cj, ct in ((full_j, full_t), (full_j.reduced(), full_t.reduced())):
+        for f in dataclasses.fields(cj):
+            want = getattr(cj, f.name)
+            want = JAX_DTYPES.get(want, want)
+            assert getattr(ct, f.name) == want, f.name
         assert ct.blocks() == cj.blocks()
-        for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
-                  "d_ff", "vocab_size", "local_window", "lru_width",
-                  "logit_softcap", "activation", "embed_scale"):
-            assert getattr(ct, f) == getattr(cj, f), f
-    assert (dataclasses.asdict(M.decompose(full_t.blocks()))
-            == dataclasses.asdict(JM.decompose(full_j.blocks())))
+        assert (dataclasses.asdict(M.decompose(ct.blocks()))
+                == dataclasses.asdict(JM.decompose(cj.blocks())))
+        assert (ct.sub_quadratic(), ct.has_decode(), ct.dense_ffn_dim()) \
+            == (cj.sub_quadratic(), cj.has_decode(), cj.dense_ffn_dim())
+        for name, shape in JSHAPES.items():
+            assert cell_is_runnable(ct, SHAPES[name]) == \
+                jax_cell_is_runnable(cj, shape)
+    assert {n: dataclasses.astuple(s) for n, s in SHAPES.items()} \
+        == {n: dataclasses.astuple(s) for n, s in JSHAPES.items()}
     assert full_t.param_dtype == torch.bfloat16
-    assert CFG.compute_dtype == torch.float32
-
-
-def test_unported_architectures_name_their_roadmap_item():
-    for arch in ARCH_IDS:
-        if arch != "recurrentgemma_2b":
-            with pytest.raises(NotImplementedError, match="ROADMAP Q9c"):
-                get_arch(arch)
+    assert full_t.reduced().compute_dtype == torch.float32
 
 
 @pytest.mark.parametrize("b,s", [(2, 32), (1, 1024)],
@@ -72,8 +82,9 @@ def test_forward_matches_reference(params, b, s):
     want, _ = JM.forward(jp, {"tokens": jnp.asarray(tok)}, JCFG)
     flash_ops.reset_path_counts()
     lru_ops.reset_path_counts()
-    got = M.forward(tp, {"tokens": torch.from_numpy(tok).long()}, CFG)
+    got, aux = M.forward(tp, {"tokens": torch.from_numpy(tok).long()}, CFG)
     assert got.dtype == torch.float32 and got.shape == (b, s, CFG.vocab_size)
+    assert aux.dtype == torch.float32 and float(aux) == 0.0   # no MoE layer
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
                                rtol=0)
     # the CPU takes each kernel's plain version: flash only at S >= 1024
@@ -97,7 +108,7 @@ def test_decode_matches_reference_past_the_window(params):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
                                    rtol=0, err_msg=f"position {t}")
         outs.append(got[:, 0])
-    fwd = M.forward(tp, {"tokens": torch.from_numpy(tok).long()}, CFG)
+    fwd, _ = M.forward(tp, {"tokens": torch.from_numpy(tok).long()}, CFG)
     err = float((torch.stack(outs, 1) - fwd).abs().max())
     assert err < DECODE_TOL, f"decode/forward mismatch: {err}"
 
@@ -108,7 +119,7 @@ def test_decode_matches_forward_on_the_flash_path(params):
     _, tp = params
     S = 1100
     tok = torch.from_numpy(_tokens(2, 1, S)).long()
-    fwd = M.forward(tp, {"tokens": tok}, CFG)
+    fwd, _ = M.forward(tp, {"tokens": tok}, CFG)
     cache = M.init_cache(CFG, 1, S, "cpu")
     err = 0.0
     for t in range(S):
@@ -146,3 +157,11 @@ def test_serve_launcher_on_cpu(capsys):
                       "--batch", "2", "--prompt-len", "4", "--gen-len", "5"])
     assert out.shape == (2, 5)
     assert "tok/s on cpu" in capsys.readouterr().out
+
+
+def test_serve_launcher_refuses_an_encoder():
+    """hubert-xlarge has no decode step: the launcher says so, in the
+    reference's words, before it touches a device."""
+    from repro_torch.launch import serve
+    with pytest.raises(SystemExit, match="encoder-only: no decode step"):
+        serve.main(["--arch", "hubert-xlarge", "--device", "cpu"])
