@@ -13,7 +13,9 @@ Phases, one line each, then a kernels line and a last line with the device:
      build_report  ptxas's registers and spills of each kernel (fct_count,
                 flash_attention, lru_scan), and the HMMA (tensor-core)
                 instructions ``cuobjdump -sass`` finds in each: every bf16
-                flash instantiation must have some, the float32 one none.
+                flash instantiation, forward and backward (dK/dV and dQ),
+                must have some, the float32 ones none; no bf16 backward
+                instantiation may spill registers.
   3. kernels    each kernel against its plain PyTorch version on the card.
                 fct_count: int32 (random, past 2^24, wrapping past 2^31),
                 int64 (past 2^33, wrapping near 2^62), float32 (exact
@@ -163,7 +165,13 @@ Phases, one line each, then a kernels line and a last line with the device:
                 TB/s), the plain versions' backward
                 and ``scaled_dot_product_attention``'s backward (each
                 forward + backward minus its forward), launches per train
-                step.  Then flash_attention and its backward at the new head
+                step.  K3b's entry also names its bf16 design, what it
+                launches there (head splits, grids, blocks an SM), ptxas's
+                registers and spills of the two instantiations it runs, the
+                CUDA-core design's time on the same card (the float32
+                kernels on float32 copies of the inputs) and the parent's
+                time cited from PERF.md.  Then flash_attention and its
+                backward at the new head
                 dims, on phase 17's captured first-layer prefill inputs of
                 HuBERT-XLarge ([1, 4 096, 16, 80], full mask) and
                 DeepSeek-V2 (q/k [1, 4 096, 128, 192], v [..., 128],
@@ -186,7 +194,9 @@ Phases, one line each, then a kernels line and a last line with the device:
                 rglru layers once), 18 lru_scan_bwd, no plain-version call;
                 finite losses and grad norms, the last loss below the first;
                 median step ms, tokens/s, ``max_memory_allocated``, and one
-                more step under ``torch.profiler``.
+                more step under ``torch.profiler`` (the flash backward's
+                device time, all of it and by kernel: delta, dK/dV, the
+                partials' sum, dQ).
  15. lm_grad    float32, full width, depth cut to one unit (rglru, rglru,
                 local) so float32 state and the plain path fit, B 1 x S
                 2 304: loss and every gradient leaf through the kernels
@@ -229,7 +239,9 @@ Phases, one line each, then a kernels line and a last line with the device:
                 under 3e9 (AdamW's state, about 16 B a parameter; RWKV6 at
                 4 layers for time), each inside ``counted`` with the exact
                 flash and flash-backward launches, finite loss and grad
-                norm, aux > 0 exactly with MoE layers; DeepSeek-V2 trains
+                norm, aux > 0 exactly with MoE layers, and where the model
+                has attention a third step under ``torch.profiler`` (the
+                flash backward's device time, as lm_train's); DeepSeek-V2 trains
                 its dense layer and takes the gradient of its dense layer
                 and one MoE layer besides (not one MoE layer fits beside
                 AdamW's state).
@@ -298,10 +310,12 @@ _ARG_TYPES = {"f": "float32", "i": "int32", "l": "int64",
 
 
 def kernel_name(mangled: str) -> str:
-    """``flash_attention_mma_kernel<256,256>`` from a mangled symbol."""
+    """``flash_attention_mma_kernel<256,256>`` from a mangled symbol
+    (``flash_bwd_reduce_kernel`` from one that is no template)."""
     m = re.search(r"\d+([a-z_]+kernel)I(.*?)EEv", mangled)
     if m is None:
-        return mangled
+        m = re.search(r"\d+([a-z_]+kernel)E", mangled)
+        return m.group(1) if m else mangled
     dims = re.findall(r"Li(\d+)E", m.group(2))
     dtype = m.group(2).split("Li")[0]
     args = ([_ARG_TYPES.get(dtype, dtype)] if dtype else []) + dims
@@ -348,13 +362,25 @@ def sass_hmma(lib_path) -> dict:
     return counts
 
 
+#: kernel -> (registers, spill store bytes, spill load bytes), from the
+#: build of this run (``build_report``)
+PTXAS: dict = {}
+BF16_BWD_KERNELS = ("flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_mma_kernel")
+BF16_FLASH_KERNELS = ("flash_attention_mma_kernel", *BF16_BWD_KERNELS)
+F32_BWD_KERNELS = ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+
+
 def build_report(libs) -> str:
     """Registers, spills and HMMA count of every kernel of ``libs``; fails
-    unless every bf16 flash instantiation runs on the tensor cores and the
-    float32 one does not."""
+    unless every bf16 flash instantiation, forward and backward, runs on the
+    tensor cores and the float32 ones do not, and unless ptxas reported
+    every bf16 flash instantiation in this run's build with no register
+    spilled."""
+    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
     parts, hmma_all = [], {}
     for lib in libs:
         regs = ptxas_report(lib.build_log or "")
+        PTXAS.update(regs)
         hmma = sass_hmma(lib.path)
         hmma_all.update(hmma)
         for name in sorted(set(regs) | set(hmma)):
@@ -365,13 +391,29 @@ def build_report(libs) -> str:
     mma = {k: v for k, v in hmma_all.items()
            if k.startswith("flash_attention_mma_kernel")}
     if hmma_all:
-        from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
         check(len(mma) == len(HEAD_DIMS) and all(v > 0 for v in
                                                  mma.values()),
               f"bf16 flash kernels without tensor-core instructions: {mma}")
         check(all(v == 0 for k, v in hmma_all.items()
                   if k.startswith("flash_attention_kernel")),
               "the float32 flash kernel uses the tensor cores")
+        for prefix in BF16_BWD_KERNELS:
+            bwd = {k: v for k, v in hmma_all.items() if k.startswith(prefix)}
+            check(len(bwd) == len(HEAD_DIMS) and all(v > 0 for v in
+                                                     bwd.values()),
+                  f"bf16 flash backward kernels without tensor-core "
+                  f"instructions: {bwd}")
+        check(all(v == 0 for k, v in hmma_all.items()
+                  if k.startswith(F32_BWD_KERNELS)),
+              "a float32 flash backward kernel uses the tensor cores")
+    wanted = [f"{prefix}<{d},{dv}>" for prefix in BF16_FLASH_KERNELS
+              for d, dv in HEAD_DIMS]
+    missing = [name for name in wanted if name not in PTXAS]
+    check(not missing, f"no ptxas figures from this run's build for "
+                       f"{missing}")
+    spilled = {name: PTXAS[name] for name in wanted
+               if PTXAS[name][1] or PTXAS[name][2]}
+    check(not spilled, f"bf16 flash instantiations spill: {spilled}")
     return "; ".join(parts)
 
 
@@ -1770,6 +1812,14 @@ def train_step_launches(cfg, layout):
             "lru_scan_bwd": n(blocks, ("rglru",))}
 
 
+# the flash backward's device time in a profile, all of it and by kernel
+FLASH_BWD_PROFILE = {"flash_attention_bwd": "flash_bwd",
+                     "flash_bwd_dkdv": "flash_bwd_dkdv",
+                     "flash_bwd_dq": "flash_bwd_dq",
+                     "flash_bwd_reduce": "flash_bwd_reduce",
+                     "flash_bwd_delta": "flash_bwd_delta"}
+
+
 def run_lm_train(torch, args, dev):
     """recurrentgemma-2b at full width and depth, bf16, remat "full": 6
     ``make_train_step`` steps of B x S from ``data_stream(--seed)``, every
@@ -1830,8 +1880,8 @@ def run_lm_train(torch, args, dev):
     steady = sorted(times[1:])[len(times[1:]) // 2]
     profile = profile_device(
         torch, lambda: step(params, opt, next(stream)),
-        {"flash_attention_bwd": "flash_bwd", "flash_attention":
-         "flash_attention", "lru_scan_bwd": "lru_scan_bwd_kernel",
+        {**FLASH_BWD_PROFILE, "flash_attention": "flash_attention",
+         "lru_scan_bwd": "lru_scan_bwd_kernel",
          "lru_scan": "lru_scan_kernel"})
     print(f"[lm_train] losses {losses}; grad_norms {norms}; step ms "
           f"{[round(t, 3) for t in times]} (median of steps 1-"
@@ -2444,6 +2494,12 @@ def run_arch_train(torch, name, args, dev):
                                           params.parameters()),
            "losses": losses, "aux": auxes, "step_ms": times,
            "device_peak_bytes": peak, "launches": want}
+    if want["flash_attention_bwd"]:   # one more step, profiled
+        batch = next(stream)
+        out["profile"] = profile_device(
+            torch, lambda: step(params, opt, batch),
+            {**FLASH_BWD_PROFILE, "flash_attention": "flash_attention"},
+            host_ops=False)
     del params, opt, metrics
     torch.cuda.empty_cache()
     if moe_layers(cfg) == 0 and full.n_experts:
@@ -2823,6 +2879,23 @@ def captured_flash_bwd_check(torch, q, k, v, o, lse, g, causal, window,
     return {"formula": formula, "autograd": autograd}, share, equal
 
 
+def bwd_design(q, v, causal, window) -> dict:
+    """K3b's bf16 design at these inputs: its name, what it launches (head
+    splits, the dK/dV and dQ grids, threads, shared bytes and blocks an SM
+    of each kernel, the partials' scratch) and ptxas's registers and spills
+    of the two instantiations it runs, from this run's build."""
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    D, Dv = q.shape[-1], v.shape[-1]
+    plan = flash_kernel.bwd_plan(q, v, causal=causal, window=window)
+    ptxas = {}
+    for prefix in BF16_BWD_KERNELS:
+        name = f"{prefix}<{D},{Dv}>"
+        r = PTXAS[name]      # build_report checked every instantiation
+        ptxas[name] = {"registers": r[0], "spill_store_bytes": r[1],
+                       "spill_load_bytes": r[2]}
+    return {"design": plan.pop("design"), "launch": plan, "ptxas": ptxas}
+
+
 def time_flash_bwd(torch, captured, plain_blocks=(64, 32)):
     """The backward kernel at lm_train's first backward call (the last
     local layer's q, k, v, o, lse and dO), that dO brought to a unit max by
@@ -2856,6 +2929,13 @@ def time_flash_bwd(torch, captured, plain_blocks=(64, 32)):
           f"readings {json.dumps(readings)}", flush=True)
     ms = median_ms(torch, lambda: flash_kernel.flash_attention_bwd(
         q, k, v, o, lse, do, causal=causal, window=window))
+    # the CUDA-core design on the same card: the float32 instantiation (the
+    # kernels the bf16 path ran before) on float32 copies of the inputs
+    f32 = [t.float() for t in (q, k, v, o, do)]
+    cuda_core_ms = median_ms(torch, lambda: flash_kernel.flash_attention_bwd(
+        *f32[:4], lse, f32[4], causal=causal, window=window), iters=5,
+        warmup=1)
+    del f32
     both, fwd = fwd_bwd_ms(torch, lambda *t: flash_ops.flash_attention(
         *t, causal=causal, window=window, backend="ref"), (q, k, v), do)
     import torch.nn.functional as F
@@ -2884,7 +2964,12 @@ def time_flash_bwd(torch, captured, plain_blocks=(64, 32)):
                  "op_abs_of_max": CAPTURED_BWD_ABS_OF_MAX}, {
         "max_err_over_limit": share, "repeat_equal": equal,
         "do_scaled_by_pow2": exponent, "check_readings": readings,
-        "ms": ms, "kernel_ms": ms, "plain_ms": both - fwd,
+        **bwd_design(q, v, causal, window),
+        "ms": ms, "kernel_ms": ms,
+        "cuda_core_f32_ms": cuda_core_ms,
+        "cuda_core_f32": "the float32 instantiation's CUDA-core kernels on "
+                         "float32 copies of the same inputs, this run",
+        "plain_ms": both - fwd,
         "plain_fwd_bwd_ms": both, "plain_fwd_ms": fwd,
         "library_ms": lib_both - lib_fwd, "library_fwd_bwd_ms": lib_both,
         "library_fwd_ms": lib_fwd,
@@ -2952,6 +3037,53 @@ def time_lru_bwd(torch, captured):
         "shape": {"a": list(a.shape), "dtype": str(a.dtype).split(".")[-1]}}
 
 
+# K3b's head splits are timed at lm_train's shape and at lm_archs' GQA/MQA
+# training shapes (B 1 x S 2 048, causal): (architecture, H, Hkv, D, S,
+# window)
+SPLIT_SHAPES = (("recurrentgemma-2b", 10, 1, 256, 4096, 2048),
+                ("granite-20b", 48, 1, 128, 2048, None),
+                ("pixtral-12b", 32, 8, 128, 2048, None),
+                ("smollm-360m", 15, 5, 64, 2048, None))
+
+
+def head_split_sweep(torch, dev) -> list:
+    """K3b's bf16 time at every head split (each divisor of the kv group),
+    beside the one ``kernel.head_splits`` picks, at each of
+    ``SPLIT_SHAPES`` on bf16 N(0, 1) inputs from a seed."""
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    gen = torch.Generator().manual_seed(1234)
+    out = []
+    for arch, H, Hkv, D, S, window in SPLIT_SHAPES:
+        q, k, v, do = (torch.randn(shape, generator=gen).to(dev).bfloat16()
+                       for shape in ((1, S, H, D), (1, S, Hkv, D),
+                                     (1, S, Hkv, D), (1, S, H, D)))
+        o, lse = flash_kernel.flash_attention(q, k, v, causal=True,
+                                              window=window, lse=True)
+        picked = flash_kernel.bwd_plan(q, v, causal=True,
+                                       window=window)["head_splits"]
+        group, pick, ms = H // Hkv, flash_kernel.head_splits, {}
+        try:
+            for n in (n for n in range(1, group + 1) if group % n == 0):
+                flash_kernel.head_splits = lambda *_, n=n: n
+                ms[n] = median_ms(torch, lambda: flash_kernel.
+                                  flash_attention_bwd(q, k, v, o, lse, do,
+                                                      causal=True,
+                                                      window=window))
+        finally:
+            flash_kernel.head_splits = pick
+        best = min(ms, key=ms.get)
+        out.append({"architecture": arch, "q": [1, S, H, D],
+                    "kv_heads": Hkv, "window": window, "picked": picked,
+                    "picked_ms": ms[picked], "best": best,
+                    "best_ms": ms[best], "ms_by_splits": ms})
+        print(f"[flash_attention_bwd_head_splits] {arch} q {[1, S, H, D]} "
+              f"kv heads {Hkv}: picked {picked} splits, {ms[picked]:.4f} ms;"
+              f" fastest {best}, {ms[best]:.4f} ms; by splits "
+              f"{ {n: round(t, 4) for n, t in ms.items()} }", flush=True)
+        del q, k, v, do, o, lse
+    return out
+
+
 def lm_timing(torch, captured, case_errs):
     report = []
     for name, timer in (("flash_attention", time_flash),
@@ -2967,6 +3099,13 @@ def lm_timing(torch, captured, case_errs):
                  "cases_max_abs_err": case_errs[name], "tolerance": tol}
         entry.update(timing)
         report.append(entry)
+        if name == "flash_attention_bwd":
+            entry["head_split_sweep"] = head_split_sweep(
+                torch, torch.device("cuda", 0))
+            print(f"[{name}_design] {entry['design']}; {entry['launch']}; "
+                  f"ptxas {entry['ptxas']}; {entry['cuda_core_f32_ms']:.4f} "
+                  f"ms on the CUDA-core design (float32, this run)",
+                  flush=True)
         if name.endswith("_bwd"):
             print(f"[{name}_timing] at {entry['shape']}: {entry['ms']:.4f} "
                   f"ms a call, bound {entry['bound_ms']:.4f} ms "
@@ -3028,6 +3167,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     libs = [kernel.LIB, flash_kernel.LIB, lru_kernel.LIB]
+    for lib in libs:    # build here, so ptxas reports every kernel
+        lib.path.unlink(missing_ok=True)
     _build.build_all(libs)
     phase("build", t0, "; ".join(
         f"{lib.source.relative_to(ROOT)} -> {lib.path.name}, nvcc "
@@ -3185,6 +3326,11 @@ def main() -> int:
                   f"{part['max_abs_err']:.4g}, worst error "
                   f"{part['max_err_over_limit']:.3f} of its limit, two calls "
                   f"bit-equal", flush=True)
+            if key == "flash_attention_bwd":
+                print(f"[{key}_design] {name}: {part['launch']}; ptxas "
+                      f"{part['ptxas']}; {part['cuda_core_f32_ms']:.4f} ms "
+                      f"on the CUDA-core design (float32, this run)",
+                      flush=True)
     for entry in report:
         if entry["name"] in new_dims:
             entry["new_head_dims"] = new_dims[entry["name"]]

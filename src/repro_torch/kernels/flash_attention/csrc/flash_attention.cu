@@ -36,7 +36,10 @@
 //     (.trans for V).  Q stays in registers as A fragments for the whole kv
 //     loop where that fits beside O and S (Q D/4 + O Dv/2 + S 32 registers
 //     <= 168 a thread); at D = Dv = 256 that would be 224 of 255 registers,
-//     so Q is read again from shared memory at each k step instead.
+//     so Q is read again from shared memory at each k step instead, and a
+//     64-key tile is computed in two passes of 32 keys (S, softmax, P V
+//     each; the pass loop not unrolled), so that S and P of one pass sit
+//     beside O's 128 accumulators without a spill.
 //   - The scale 1/sqrt(D) multiplies S in float32 (exact for D 16, 64, 256).
 //   - P V takes V in n8 tiles of 8 columns, two a step (ldmatrix.x4.trans);
 //     a Dv that is an odd number of n8 tiles (Dv = 8, the reduced MLA's)
@@ -90,6 +93,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -312,7 +317,11 @@ struct MmaShape {
   static constexpr int kBQ = 16 * kWarps;     // q rows of a block
   static constexpr int kQS = D + 8;           // padded row strides (elements)
   static constexpr int kVS = DV + 8;
-  static constexpr bool kQInRegs = D / 4 + DV / 2 + kMmaBK / 2 <= 168;
+  // keys of one pass of S, softmax and P V over a kv tile: at D = Dv = 256
+  // two passes of 32, not unrolled, which keeps the S and P fragments of a
+  // pass beside O's 128 accumulators within 255 registers (no spill)
+  static constexpr int kSub = D == 256 && DV == 256 ? 32 : kMmaBK;
+  static constexpr bool kQInRegs = D / 4 + DV / 2 + kSub / 2 <= 168;
   static constexpr int kStage = kMmaBK * (kQS + kVS);  // one k and one v tile
   static constexpr size_t kSmem =
       sizeof(__nv_bfloat16) * (static_cast<size_t>(kBQ) * kQS + 2 * kStage);
@@ -409,7 +418,8 @@ flash_attention_mma_kernel(const Params p) {
   using S = MmaShape<D, DV>;
   static_assert(D % 16 == 0 && DV % 8 == 0, "mma k16 tiles of D, n8 of Dv");
   constexpr int kQS = S::kQS, kVS = S::kVS, kBQ = S::kBQ;
-  constexpr int kNS = kMmaBK / 8;  // n8 tiles of S across the kv tile
+  constexpr int kSub = S::kSub;
+  constexpr int kNS = kSub / 8;    // n8 tiles of S across a pass
   constexpr int kNO = DV / 8;      // n8 tiles of O across Dv
 
   extern __shared__ __align__(16) __nv_bfloat16 smem_bf16[];
@@ -483,115 +493,120 @@ flash_attention_mma_kernel(const Params p) {
           ldmatrix_x4(qf[kk], q_addr + kk * 32);
       }
     }
-    // does this kv tile hold a key of this warp's 16 rows' band?
-    const bool skip = kt >= p.skv || (causal && kt > r0 + 15) ||
-                      (p.window > 0 && r0 - (kt + kMmaBK - 1) >= p.window);
-    if (!skip) {
-      const __nv_bfloat16* sk = sKV + stage * S::kStage;
-      const uint32_t k_addr = smem_addr(sk + k_row * kQS + k_col);
-      const uint32_t v_addr = smem_addr(sk + kMmaBK * kQS + a_row * kVS +
-                                        a_col);
+#pragma unroll 1
+    for (int sub = 0; sub < kMmaBK / kSub; ++sub) {
+      // does this pass's keys hold a key of this warp's 16 rows' band?
+      const int ks = kt + sub * kSub;
+      const bool skip = ks >= p.skv || (causal && ks > r0 + 15) ||
+                        (p.window > 0 && r0 - (ks + kSub - 1) >= p.window);
+      if (!skip) {
+        const __nv_bfloat16* sk = sKV + stage * S::kStage;
+        const uint32_t k_addr =
+            smem_addr(sk + (sub * kSub + k_row) * kQS + k_col);
+        const uint32_t v_addr = smem_addr(sk + kMmaBK * kQS +
+                                          (sub * kSub + a_row) * kVS + a_col);
 
-      // S = Q K^T
-      float s[kNS][4];
+        // S = Q K^T
+        float s[kNS][4];
 #pragma unroll
-      for (int n = 0; n < kNS; ++n)
+        for (int n = 0; n < kNS; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+          for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t a[4];
-        if constexpr (S::kQInRegs) {
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t a[4];
+          if constexpr (S::kQInRegs) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
-        } else {
-          ldmatrix_x4(a, q_addr + kk * 32);
-        }
-#pragma unroll
-        for (int np = 0; np < kNS / 2; ++np) {
-          uint32_t bk[4];
-          ldmatrix_x4(bk, k_addr + (np * 16 * kQS + kk * 16) * 2);
-          mma_bf16(s[2 * np], a, bk[0], bk[1]);
-          mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
-        }
-      }
-
-      // scale, mask, online softmax on the fragments: element e of tile n
-      // is row r0 + g + 8 (e / 2), key kt + 8 n + 2 t + e % 2.  A tile
-      // whose keys are all in the band of all 16 rows needs no mask.
-      const bool inside =
-          kt + kMmaBK <= p.skv && (!causal || kt + kMmaBK - 1 <= r0) &&
-          (p.window <= 0 || r0 + 15 - kt < p.window);
-      float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-      for (int n = 0; n < kNS; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          bool valid = inside;
-          if (!inside) {
-            const int kpos = kt + 8 * n + 2 * t + (e % 2);
-            const int delta = r0 + g + 8 * (e / 2) - kpos;
-            valid = kpos < p.skv;
-            if (causal) valid = valid && delta >= 0;
-            if (p.window > 0) valid = valid && delta < p.window;
+            for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+          } else {
+            ldmatrix_x4(a, q_addr + kk * 32);
           }
-          const float x = valid ? s[n][e] * p.scale : kNegInf;
-          s[n][e] = x;
-          mx[e / 2] = fmaxf(mx[e / 2], x);
+#pragma unroll
+          for (int np = 0; np < kNS / 2; ++np) {
+            uint32_t bk[4];
+            ldmatrix_x4(bk, k_addr + (np * 16 * kQS + kk * 16) * 2);
+            mma_bf16(s[2 * np], a, bk[0], bk[1]);
+            mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
+          }
         }
-      float corr[2], m_log2[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m[r], mx[r]);
-        corr[r] = exp2f((m[r] - m_new) * kLog2e);
-        m[r] = m_new;
-        m_log2[r] = m_new * kLog2e;
-        l[r] *= corr[r];
-      }
-#pragma unroll
-      for (int n = 0; n < kNS; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x = s[n][e];
-          const float pr = x == kNegInf
-                               ? 0.0f
-                               : exp2f(fmaf(x, kLog2e, -m_log2[e / 2]));
-          s[n][e] = pr;
-          l[e / 2] += pr;
-        }
-#pragma unroll
-      for (int n = 0; n < kNO; ++n) {
-        o[n][0] *= corr[0];
-        o[n][1] *= corr[0];
-        o[n][2] *= corr[1];
-        o[n][3] *= corr[1];
-      }
 
-      // O += P_hi V + P_lo V, 16 keys a step; the S fragments of tiles
-      // 2 kk and 2 kk + 1 are the A fragment of P
+        // scale, mask, online softmax on the fragments: element e of tile n
+        // is row r0 + g + 8 (e / 2), key ks + 8 n + 2 t + e % 2.  A pass
+        // whose keys are all in the band of all 16 rows needs no mask.
+        const bool inside =
+            ks + kSub <= p.skv && (!causal || ks + kSub - 1 <= r0) &&
+            (p.window <= 0 || r0 + 15 - ks < p.window);
+        float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-      for (int kk = 0; kk < kMmaBK / 16; ++kk) {
-        uint32_t ph[4], pl[4];
-        split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-        split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
-        split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
-        split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+        for (int n = 0; n < kNS; ++n)
 #pragma unroll
-        for (int np = 0; np < kNO / 2; ++np) {
-          uint32_t bv[4];
-          ldmatrix_x4_trans(bv, v_addr + (kk * 16 * kVS + np * 16) * 2);
-          mma_bf16(o[2 * np], ph, bv[0], bv[1]);
-          mma_bf16(o[2 * np + 1], ph, bv[2], bv[3]);
-          mma_bf16(o[2 * np], pl, bv[0], bv[1]);
-          mma_bf16(o[2 * np + 1], pl, bv[2], bv[3]);
+          for (int e = 0; e < 4; ++e) {
+            bool valid = inside;
+            if (!inside) {
+              const int kpos = ks + 8 * n + 2 * t + (e % 2);
+              const int delta = r0 + g + 8 * (e / 2) - kpos;
+              valid = kpos < p.skv;
+              if (causal) valid = valid && delta >= 0;
+              if (p.window > 0) valid = valid && delta < p.window;
+            }
+            const float x = valid ? s[n][e] * p.scale : kNegInf;
+            s[n][e] = x;
+            mx[e / 2] = fmaxf(mx[e / 2], x);
+          }
+        float corr[2], m_log2[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          const float m_new = fmaxf(m[r], mx[r]);
+          corr[r] = exp2f((m[r] - m_new) * kLog2e);
+          m[r] = m_new;
+          m_log2[r] = m_new * kLog2e;
+          l[r] *= corr[r];
         }
-        if constexpr (kNO % 2 == 1) {  // the last n8 tile alone
-          uint32_t bv[2];
-          ldmatrix_x2_trans(bv, v_addr + (kk * 16 * kVS + (kNO - 1) * 8) * 2);
-          mma_bf16(o[kNO - 1], ph, bv[0], bv[1]);
-          mma_bf16(o[kNO - 1], pl, bv[0], bv[1]);
+#pragma unroll
+        for (int n = 0; n < kNS; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float x = s[n][e];
+            const float pr = x == kNegInf
+                                 ? 0.0f
+                                 : exp2f(fmaf(x, kLog2e, -m_log2[e / 2]));
+            s[n][e] = pr;
+            l[e / 2] += pr;
+          }
+#pragma unroll
+        for (int n = 0; n < kNO; ++n) {
+          o[n][0] *= corr[0];
+          o[n][1] *= corr[0];
+          o[n][2] *= corr[1];
+          o[n][3] *= corr[1];
+        }
+
+        // O += P_hi V + P_lo V, 16 keys a step; the S fragments of tiles
+        // 2 kk and 2 kk + 1 are the A fragment of P
+#pragma unroll
+        for (int kk = 0; kk < kSub / 16; ++kk) {
+          uint32_t ph[4], pl[4];
+          split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+          split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+          split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+          split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+          for (int np = 0; np < kNO / 2; ++np) {
+            uint32_t bv[4];
+            ldmatrix_x4_trans(bv, v_addr + (kk * 16 * kVS + np * 16) * 2);
+            mma_bf16(o[2 * np], ph, bv[0], bv[1]);
+            mma_bf16(o[2 * np + 1], ph, bv[2], bv[3]);
+            mma_bf16(o[2 * np], pl, bv[0], bv[1]);
+            mma_bf16(o[2 * np + 1], pl, bv[2], bv[3]);
+          }
+          if constexpr (kNO % 2 == 1) {  // the last n8 tile alone
+            uint32_t bv[2];
+            ldmatrix_x2_trans(bv, v_addr + (kk * 16 * kVS + (kNO - 1) * 8) * 2);
+            mma_bf16(o[kNO - 1], ph, bv[0], bv[1]);
+            mma_bf16(o[kNO - 1], pl, bv[0], bv[1]);
+          }
         }
       }
     }
@@ -723,9 +738,10 @@ FLASH_ENTRY(flash_attention_bfloat16, __nv_bfloat16)
 // No TPU kernel to replace: the JAX package's flash_attention
 // (src/repro/kernels/flash_attention/kernel.py, flash_attention_pallas) has
 // no custom_vjp, and its training differentiates the jnp blocked version
-// (flash_attention/ref.py).  This is the backward of the forward
-// above, from what that forward keeps: its output o and the
-// float32 log-sum-exp lse [B, H, Sq] of each row's scaled scores.
+// (src/repro/kernels/flash_attention/ref.py:23, flash_attention).  This is
+// the backward of the forward above, from what that forward keeps: its
+// output o and the float32 log-sum-exp lse [B, H, Sq] of each row's scaled
+// scores.
 //
 // For q [B, Sq, H, D], k [B, Skv, Hkv, D], v [B, Skv, Hkv, Dv] (float32 or
 // bfloat16, read through their batch/sequence/head strides, the last
@@ -735,14 +751,84 @@ FLASH_ENTRY(flash_attention_bfloat16, __nv_bfloat16)
 //   dV_j   = sum over the heads of j's group and rows i of P_ij dO_i
 //   dS_ij  = P_ij (dO_i . v_j - delta_i)
 //   dK_j   = scale sum_i dS_ij q_i,       dQ_i = scale sum_j dS_ij k_j
-// into new contiguous dq, dk, dv of the input type, from float32 arithmetic
-// (the float32 instantiation never touches the tensor cores, so no TF32).
-// The mask is the forward's: keys j < Skv and, when causal, 0 <= i - j (and
-// i - j < window when a window is given; a window implies causal), positions
-// aligned at 0, Sq and Skv ragged.
+// into new contiguous dq, dk, dv of the input type.  The mask is the
+// forward's: keys j < Skv and, when causal, 0 <= i - j (and i - j < window
+// when a window is given; a window implies causal), positions aligned at 0,
+// Sq and Skv ragged.  No atomics anywhere, so two calls give the same bits.
 //
-// Three launches, no atomics, so two calls give the same bits:
-//   1. flash_bwd_delta_kernel: one warp per row, delta [B, H, Sq] float32.
+// Bound: operations.  The band's backward is 2.5x the forward's operations
+// (five products, S and dP recomputed, dV, dK, dQ, against the forward's
+// two); at the recurrentgemma-2b training shape (S 4 096, H 10, Hkv 1,
+// D = Dv = 256, window 2 048) about 161 GFLOP: 0.163 ms at the H100's dense
+// bf16 tensor-core peak (989 TFLOP/s).
+//
+// bfloat16: flash_bwd_dkdv_mma_kernel and flash_bwd_dq_mma_kernel, on the
+// tensor cores (mma.sync m16n8k16 bf16, float32 accumulators, fragments by
+// ldmatrix, .trans for the operands laid out [k][n]).  Four launches at
+// most: delta (flash_bwd_delta_kernel, below), dK/dV, the fixed-order sum of
+// the dK/dV partials when the group's heads are split over blocks, and dQ,
+// which recomputes S and dP.  Both mma kernels have one shape: a block of
+// 8 warps owns 64 rows (keys for dK/dV, q rows for dQ) and streams 32-row
+// tiles of the other side through a two-stage cp.async ring; each step is
+//   1. S and dP of the 64 x 32 pair tile: warp (row group r, part c) takes
+//      16 own rows x 16 streamed rows; S = q k^T and dP = dO v^T take their
+//      bf16 inputs as they are; P = exp2(S scale log2e - lse log2e) and
+//      dS = P (dP - delta) in float32 on the fragments, masked pairs 0;
+//   2. P and dS split into bf16 hi = bf16(x) and lo = bf16(x - hi), stored
+//      to shared memory; a barrier (the other is at the step's start, after
+//      its tile landed, before the next tile's copy is issued);
+//   3. dV += (P_hi + P_lo)^T dO and dK += (dS_hi + dS_lo)^T q (dK/dV), or
+//      dQ += (dS_hi + dS_lo) k (dQ): warp (r, c) keeps 16 rows x half the
+//      head dim of each accumulator (Dv 8: part 0 keeps all of dV).
+// The split products are what keep the bf16 backward within one bf16
+// rounding of its float32 formula (tests/test_torch_flash_attention.py
+// emulates both roundings at the training statistics; P or dS in one bf16
+// is off by up to 2^-9 of each term); they double the tensor-core work of
+// three of the five products, so the kernels' own floor is 10 products'
+// worth, 2x the bound.
+//
+// What the design does about the CUDA-core version it replaced (32-row
+// float32 tiles in shared memory, rank-1 fmaf updates, no cp.async, one
+// block an SM at D 256):
+//   - inputs stay bf16 in shared memory, rows padded by 8 elements (16
+//     bytes) so the 8 rows an ldmatrix phase reads, and the fragment
+//     stores of P and dS, fall in distinct banks;
+//   - the streamed tiles are copied by cp.async while the previous one is
+//     computed (plain loads, no overlap, where q, k, v or dO are not
+//     16-byte aligned);
+//   - registers: splitting each accumulator's columns over two warps keeps
+//     D 256 / Dv 256 at 128 accumulators a thread (16 keys x 512 columns
+//     in one warp would be 256, over the 255 limit), and P and dS go
+//     through shared memory instead of staying in the warps that made them;
+//   - at Dv 8 the k16 depth of dP reads zero-filled pad columns;
+//   - parallelism: a dK/dV block loops over the q tiles of its keys' band
+//     and over the query heads of its kv group.  At MQA with few key tiles
+//     (recurrentgemma: 64 blocks of 64 keys for 132 SMs, the last ones
+//     short because the band ends at Sq) the wrapper splits the group's
+//     heads over gridDim.z blocks (kernel.head_splits schedules each
+//     divisor's blocks onto the SMs, at the occupancy
+//     flash_attention_bwd_geometry reports, and takes the least that
+//     finishes within 5% of the earliest: 5 there); each split writes
+//     float32 partials to a scratch the wrapper allocates, and
+//     flash_bwd_reduce_kernel sums them in split order, so the bits do not
+//     depend on scheduling;
+//   - a warp skips the products of a 16 x 16 pair block outside the band
+//     (it still stores its zeros), and the mask of one wholly inside it;
+//     a warp whose 16 rows meet no pair of the streamed tile skips step 3.
+// Shared memory: (64 (D + 8 + Dv + 8) + 2 x 32 (D + 8 + Dv + 8)
+// + n 64 x 40) x 2 bytes, n = 4 (P and dS, hi and lo) for dK/dV and 2 for
+// dQ: 155 648 and 145 408 bytes at D = Dv = 256 (one block of each an
+// SM), 106 496 and 96 256 at D 192 / Dv 128 and 90 112 and 79 872 at
+// D = Dv = 128 (dK/dV one block an SM, by its registers; dQ two).
+// wgmma, TMA and warp specialisation are the known next steps, for this
+// and the forward alike.
+//
+// float32: the CUDA-core kernels flash_bwd_dkdv_kernel and
+// flash_bwd_dq_kernel, float32 arithmetic throughout (the float32
+// instantiation never touches the tensor cores: TF32 would break its
+// tolerance).  Three launches:
+//   1. flash_bwd_delta_kernel: one warp per row, delta [B, H, Sq] float32
+//      (the bf16 path launches it too).
 //   2. flash_bwd_dkdv_kernel: one block per (32-key tile, b * Hkv).  It keeps
 //      the tile's k and v in shared memory and its dK and dV accumulators in
 //      registers (at D = Dv = 256 a 32-key tile's two accumulators are 64 KB:
@@ -753,18 +839,8 @@ FLASH_ENTRY(flash_attention_bfloat16, __nv_bfloat16)
 //   3. flash_bwd_dq_kernel: one block per (32-row q tile, b * H), looping over
 //      the key tiles of the band (the forward's k_begin .. k_end).
 // A tile pair outside the band is never visited; inside it the mask decides
-// each pair, so a skipped tile can hold no pair the forward read.
-//
-// Bound: operations.  At the recurrentgemma-2b training shape (S 4 096, H 10,
-// Hkv 1, D = Dv = 256, window 2 048) the band's backward is 2.5x the forward's
-// operations (S and dP recomputed, dV, dK, dQ: five products of the forward's
-// two, halved where the forward shares), about 161 GFLOP: 0.163 ms at the
-// dense bf16 tensor-core peak (989 TFLOP/s).  This first version runs on the
-// CUDA cores in float32 for both input types, so it is bounded far above
-// that, by the float32 rate (67 TFLOP/s) and by shared-memory reads: each
+// each pair, so a skipped tile can hold no pair the forward read.  Each
 // score takes one float4 of k a thread against four broadcast float4 of q.
-// The tensor-core (mma.sync / wgmma) backward is a later step.
-//
 // Shared memory a block: 32-row tiles of q, k (D + 4 floats a row), dO, v
 // (Dv + 4), the 32 x 33 tiles of P and dS and 32 rows' lse and delta:
 // 141 824 bytes at D = Dv = 256 (one block an SM), 76 288 at 128.
@@ -793,6 +869,7 @@ struct BwdParams {
   int64_t do_sb, do_ss, do_sh;
   int batch, heads, kv_heads, sq, skv, causal, window;
   float scale;
+  int aligned;  // q, k, v, dO pointers and strides allow 16-byte copies
 };
 
 template <typename T>
@@ -1139,6 +1216,436 @@ flash_bwd_dq_kernel(const BwdParams p) {
   }
 }
 
+// --- bfloat16: the tensor-core kernels ---------------------------------------
+
+template <int D, int DV>
+struct MmaBwd {
+  static constexpr int kThreads = 256;           // 8 warps
+  static constexpr int kRows = 64;               // a block's own rows
+  static constexpr int kStep = 32;               // rows of a streamed tile
+  static constexpr int kParts = 2;               // warps sharing 16 own rows
+  static constexpr int kQS = D + 8, kVS = DV + 8;  // padded row strides
+  static constexpr int kPS = kStep + 8;          // of the P and dS tiles
+  static constexpr int kKSteps = D / 16;         // k16 steps of S
+  static constexpr int kVSteps = (DV + 15) / 16; // of dP (Dv 8: one, padded)
+  static constexpr int kDT = D / 8 / kParts;     // n8 tiles of dK / dQ a warp
+  static constexpr bool kVHalves = (DV / 8) % kParts == 0;
+  static constexpr int kVT = kVHalves ? DV / 8 / kParts : DV / 8;  // of dV
+  static constexpr int kOwn = kRows * (kQS + kVS);
+  static constexpr int kStage = kStep * (kQS + kVS);
+  // n tiles of 64 x kPS: 4 for dK/dV (P and dS, hi and lo), 2 for dQ
+  static constexpr size_t smem(int n) {
+    return sizeof(__nv_bfloat16) *
+           (static_cast<size_t>(kOwn) + 2 * kStage + n * kRows * kPS);
+  }
+  static_assert(D % 16 == 0 && DV % 8 == 0, "k16 tiles of D, n8 of Dv");
+  static_assert((D / 8) % kParts == 0, "dK / dQ columns split over parts");
+};
+
+// acc[n] += A B^T over a depth of 16 KSTEPS: A 16 rows by ldmatrix at `a`,
+// B 8 NT rows at `b` (row stride LDB), both laid out with the depth along
+// the row; a and b are this lane's ldmatrix addresses
+template <int KSTEPS, int NT, int LDB>
+__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], uint32_t a,
+                                        uint32_t b) {
+  static_assert(NT % 2 == 0, "B in pairs of n8 tiles");
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    uint32_t af[4];
+    ldmatrix_x4(af, a + kk * 32);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t bf[4];
+      ldmatrix_x4(bf, b + (np * 16 * LDB + kk * 16) * 2);
+      mma_bf16(acc[2 * np], af, bf[0], bf[1]);
+      mma_bf16(acc[2 * np + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc[n] += (A_hi + A_lo) B over a depth of 16 KSTEPS: A_hi, A_lo 16 rows
+// by ldmatrix at hi and lo, B [depth][8 NT] at b (row stride LDB) by
+// ldmatrix.trans; an odd last n8 tile alone
+template <int KSTEPS, int NT, int LDB>
+__device__ __forceinline__ void mma_split_ab(float (&acc)[NT][4],
+                                             uint32_t hi, uint32_t lo,
+                                             uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    uint32_t ah[4], al[4];
+    ldmatrix_x4(ah, hi + kk * 32);
+    ldmatrix_x4(al, lo + kk * 32);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t bf[4];
+      ldmatrix_x4_trans(bf, b + (kk * 16 * LDB + np * 16) * 2);
+      mma_bf16(acc[2 * np], ah, bf[0], bf[1]);
+      mma_bf16(acc[2 * np + 1], ah, bf[2], bf[3]);
+      mma_bf16(acc[2 * np], al, bf[0], bf[1]);
+      mma_bf16(acc[2 * np + 1], al, bf[2], bf[3]);
+    }
+    if constexpr (NT % 2 == 1) {
+      uint32_t bf[2];
+      ldmatrix_x2_trans(bf, b + (kk * 16 * LDB + (NT - 1) * 8) * 2);
+      mma_bf16(acc[NT - 1], ah, bf[0], bf[1]);
+      mma_bf16(acc[NT - 1], al, bf[0], bf[1]);
+    }
+  }
+}
+
+// (x, y) split into hi and lo bf16 pairs at element idx of hi_t and lo_t
+__device__ __forceinline__ void store_split(__nv_bfloat16* hi_t,
+                                            __nv_bfloat16* lo_t, int idx,
+                                            float x, float y) {
+  uint32_t hi, lo;
+  split_bf16(x, y, hi, lo);
+  *reinterpret_cast<uint32_t*>(hi_t + idx) = hi;
+  *reinterpret_cast<uint32_t*>(lo_t + idx) = lo;
+}
+
+// One block of either tensor-core kernel (the header's steps 1-3).  kDQ:
+// own rows are 64 q rows of one (b, h), streamed tiles are k and v of the
+// band; else own rows are 64 keys of one (b, kv head), streamed tiles are q
+// and dO of the band, over the query heads blockIdx.z's split of the group
+// owns.  `partial`: null, or where the dK/dV partial sums go (float32
+// [splits, B, Skv, Hkv, D + Dv], unscaled).
+template <int D, int DV, bool kDQ>
+__device__ __forceinline__ void bwd_mma_block(const BwdParams& p,
+                                              float* partial) {
+  using M = MmaBwd<D, DV>;
+  using bf16 = __nv_bfloat16;
+  constexpr int kQS = M::kQS, kVS = M::kVS, kPS = M::kPS;
+  constexpr int kStep = M::kStep, kRows = M::kRows, kT = M::kThreads;
+  extern __shared__ __align__(16) bf16 smem_bwd[];
+  bf16* sA = smem_bwd;                       // [64][kQS]: k | q
+  bf16* sB = sA + kRows * kQS;               // [64][kVS]: v | dO
+  bf16* ring = sB + kRows * kVS;             // 2 x ([32][kQS] q | k, [32][kVS] dO | v)
+  bf16* sSh = ring + 2 * M::kStage;          // [64][kPS] each: dS hi, lo,
+  bf16* sSl = sSh + kRows * kPS;             // then (dK/dV) P hi, lo
+  bf16* sPh = sSl + kRows * kPS;
+  bf16* sPl = sPh + kRows * kPS;
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;      // mma fragment row / column
+  const int grp = warp % 4, part = warp / 4; // 16 own rows, half the columns
+  const int r0 = blockIdx.x * kRows;
+  const int own0 = r0 + grp * 16;            // this warp's first own row
+  const int group = p.heads / p.kv_heads;
+  const bool causal = p.causal != 0 || p.window > 0;
+  const bool aligned = p.aligned != 0;
+  const float scale_log2 = p.scale * kLog2e;
+
+  int64_t b;
+  int hk, h_first, nh;
+  if constexpr (kDQ) {
+    b = blockIdx.y / p.heads;
+    h_first = blockIdx.y % p.heads;
+    hk = h_first / group;
+    nh = 1;
+  } else {
+    b = blockIdx.y / p.kv_heads;
+    hk = blockIdx.y % p.kv_heads;
+    nh = group / gridDim.z;
+    h_first = hk * group + blockIdx.z * nh;
+  }
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  auto q_of = [&](int h) {
+    return static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  };
+  auto do_of = [&](int h) {
+    return static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  };
+
+  // the streamed rows that meet the own rows' band
+  int s_begin, s_end;
+  if constexpr (kDQ) {
+    const int q_last = min(r0 + kRows, p.sq) - 1;
+    s_begin = p.window > 0 ? max(0, r0 - p.window + 1) : 0;
+    s_end = causal ? min(p.skv, q_last + 1) : p.skv;
+  } else {
+    s_begin = causal ? r0 : 0;
+    s_end = p.window > 0 ? min(p.sq, r0 + kRows - 1 + p.window) : p.sq;
+  }
+  const int tiles = s_end > s_begin ? (s_end - s_begin + kStep - 1) / kStep
+                                    : 0;
+  const int steps = tiles * nh;
+
+  if constexpr (DV % 16 != 0) {  // dP's k16 depth reads zero pad columns
+    for (int i = threadIdx.x; i < kRows + 2 * kStep; i += kT) {
+      bf16* row = i < kRows ? sB + i * kVS
+                            : ring + ((i - kRows) / kStep) * M::kStage +
+                                  kStep * kQS + ((i - kRows) % kStep) * kVS;
+#pragma unroll
+      for (int c = DV; c < kVS; ++c) row[c] = __float2bfloat16(0.0f);
+    }
+  }
+  if constexpr (kDQ) {
+    load_tile<kRows, D, kQS, kT>(sA, q_of(h_first), p.q_ss, r0, p.sq,
+                                 aligned);
+    load_tile<kRows, DV, kVS, kT>(sB, do_of(h_first), p.do_ss, r0, p.sq,
+                                  aligned);
+  } else {
+    load_tile<kRows, D, kQS, kT>(sA, kg, p.k_ss, r0, p.skv, aligned);
+    load_tile<kRows, DV, kVS, kT>(sB, vg, p.v_ss, r0, p.skv, aligned);
+  }
+  auto load_step = [&](int stage, int it) {
+    bf16* s1 = ring + stage * M::kStage;
+    bf16* s2 = s1 + kStep * kQS;
+    const int pos0 = s_begin + (it % tiles) * kStep;
+    if constexpr (kDQ) {
+      load_tile<kStep, D, kQS, kT>(s1, kg, p.k_ss, pos0, p.skv, aligned);
+      load_tile<kStep, DV, kVS, kT>(s2, vg, p.v_ss, pos0, p.skv, aligned);
+    } else {
+      const int h = h_first + it / tiles;
+      load_tile<kStep, D, kQS, kT>(s1, q_of(h), p.q_ss, pos0, p.sq, aligned);
+      load_tile<kStep, DV, kVS, kT>(s2, do_of(h), p.do_ss, pos0, p.sq,
+                                    aligned);
+    }
+  };
+  if (steps > 0) load_step(0, 0);
+  cp_async_commit();
+
+  // ldmatrix lane addresses (as the forward's): a row-major A and a [k][n]
+  // B take rows lane % 16 and columns 8 (lane / 16); a B laid out [n][k]
+  // takes rows lane % 8 + 8 (lane / 16), columns 8 ((lane / 8) % 2)
+  const int a_row = lane % 16, a_col = (lane / 16) * 8;
+  const int b_row = lane % 8 + (lane / 16) * 8, b_col = ((lane / 8) % 2) * 8;
+  const uint32_t a_s = smem_addr(sA + (grp * 16 + a_row) * kQS + a_col);
+  const uint32_t a_p = smem_addr(sB + (grp * 16 + a_row) * kVS + a_col);
+  const int x_off = (grp * 16 + a_row) * kPS + a_col;
+  const int dcol0 = part * M::kDT * 8;               // dK / dQ columns
+  const int vcol0 = M::kVHalves ? part * M::kVT * 8 : 0;
+  const bool does_v = M::kVHalves || part == 0;
+
+  float acc[M::kDT][4];                               // dK or dQ
+  float acc_v[kDQ ? 1 : M::kVT][4];                   // dV
+#pragma unroll
+  for (int n = 0; n < M::kDT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+#pragma unroll
+  for (int n = 0; n < (kDQ ? 1 : M::kVT); ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_v[n][e] = 0.0f;
+
+  // dQ: lse (times log2 e) and delta of this lane's two own rows
+  float lse_r[2] = {0.0f, 0.0f}, delta_r[2] = {0.0f, 0.0f};
+  if constexpr (kDQ) {
+    const int64_t bh = b * p.heads + h_first;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = own0 + g + 8 * r;
+      const bool in = row < p.sq;
+      lse_r[r] = in ? p.lse[bh * p.sq + row] * kLog2e
+                    : __int_as_float(0x7f800000);  // +inf: P = 0
+      delta_r[r] = in ? p.delta[bh * p.sq + row] : 0.0f;
+    }
+  }
+
+  for (int it = 0; it < steps; ++it) {
+    const int stage = it % 2;
+    cp_async_wait<0>();  // this step's tile, copied behind the last step
+    __syncthreads();     // landed for every thread; every warp is done with
+                         // the last step's stage and P, dS
+    if (it + 1 < steps) {  // the next tile into the other stage
+      load_step(stage ^ 1, it + 1);
+      cp_async_commit();
+    }
+    const bf16* s1 = ring + stage * M::kStage;
+    const bf16* s2 = s1 + kStep * kQS;
+    const int pos0 = s_begin + (it % tiles) * kStep;
+    const int str0 = pos0 + part * 16;  // this warp's first streamed row
+    const int h = kDQ ? h_first : h_first + it / tiles;
+    const int64_t bh = b * p.heads + h;
+
+    // this warp's 16 x 16 pair block: outside the band, or wholly inside
+    const int q_lo = kDQ ? own0 : str0, k_lo = kDQ ? str0 : own0;
+    const int q_hi = q_lo + 15, k_hi = k_lo + 15;
+    const bool out = q_lo >= p.sq || k_lo >= p.skv ||
+                     (causal && q_hi < k_lo) ||
+                     (p.window > 0 && q_lo - k_hi >= p.window);
+    const bool inside = q_hi < p.sq && k_hi < p.skv &&
+                        (!causal || q_lo >= k_hi) &&
+                        (p.window <= 0 || q_hi - k_lo < p.window);
+
+    // dK/dV: lse (times log2 e) and delta of this lane's four q columns
+    float lse_c[2][2], delta_c[2][2];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        lse_c[n][j] = 0.0f;
+        delta_c[n][j] = 0.0f;
+        if constexpr (!kDQ) {
+          const int q = str0 + 8 * n + 2 * t + j;
+          const bool in = q < p.sq;
+          lse_c[n][j] = in ? p.lse[bh * p.sq + q] * kLog2e
+                           : __int_as_float(0x7f800000);
+          delta_c[n][j] = in ? p.delta[bh * p.sq + q] : 0.0f;
+        }
+      }
+
+    // 1. S = q k^T and dP = dO v^T of the pair block (own rows as A)
+    float s[2][4], dp[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+    if (!out) {
+      mma_abt<M::kKSteps, 2, kQS>(
+          s, a_s, smem_addr(s1 + (part * 16 + b_row) * kQS + b_col));
+      mma_abt<M::kVSteps, 2, kVS>(
+          dp, a_p, smem_addr(s2 + (part * 16 + b_row) * kVS + b_col));
+    }
+    // P and dS on the fragments: element e of tile n is own row
+    // own0 + g + 8 (e / 2), streamed row str0 + 8 n + 2 t + e % 2
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float pr[2], ds[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int e = 2 * r + j;
+          const int own = own0 + g + 8 * r, str = str0 + 8 * n + 2 * t + j;
+          const int qi = kDQ ? own : str, kj = kDQ ? str : own;
+          bool valid = !out;
+          if (valid && !inside) {
+            valid = qi < p.sq && kj < p.skv;
+            if (causal) valid = valid && qi >= kj;
+            if (p.window > 0) valid = valid && qi - kj < p.window;
+          }
+          const float l = kDQ ? lse_r[r] : lse_c[n][j];
+          const float dl = kDQ ? delta_r[r] : delta_c[n][j];
+          pr[j] = valid ? exp2f(fmaf(s[n][e], scale_log2, -l)) : 0.0f;
+          ds[j] = pr[j] * (dp[n][e] - dl);
+        }
+        // 2. split into hi + lo, to shared memory
+        const int idx = (grp * 16 + g + 8 * r) * kPS + part * 16 + 8 * n +
+                        2 * t;
+        store_split(sSh, sSl, idx, ds[0], ds[1]);
+        if constexpr (!kDQ) store_split(sPh, sPl, idx, pr[0], pr[1]);
+      }
+    __syncthreads();
+
+    // 3. the split products, unless the own 16 rows meet no pair of the
+    // whole streamed tile
+    {
+      const int sq_lo = kDQ ? own0 : pos0, sk_lo = kDQ ? pos0 : own0;
+      const int sq_hi = sq_lo + (kDQ ? 15 : kStep - 1);
+      const int sk_hi = sk_lo + (kDQ ? kStep - 1 : 15);
+      const bool rows_out = sq_lo >= p.sq || sk_lo >= p.skv ||
+                            (causal && sq_hi < sk_lo) ||
+                            (p.window > 0 && sq_lo - sk_hi >= p.window);
+      if (!rows_out) {
+        const uint32_t b1 = smem_addr(s1 + a_row * kQS + a_col + dcol0);
+        mma_split_ab<kStep / 16, M::kDT, kQS>(
+            acc, smem_addr(sSh + x_off), smem_addr(sSl + x_off), b1);
+        if constexpr (!kDQ) {
+          if (does_v) {
+            const uint32_t b2 = smem_addr(s2 + a_row * kVS + a_col + vcol0);
+            mma_split_ab<kStep / 16, M::kVT, kVS>(
+                acc_v, smem_addr(sPh + x_off), smem_addr(sPl + x_off), b2);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // own row own0 + g + 8 (e / 2), column col0 + 8 n + 2 t + e % 2
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = own0 + g + 8 * r;
+    if constexpr (kDQ) {
+      if (row >= p.sq) continue;
+      bf16* out = static_cast<bf16*>(p.dq) +
+                  ((b * p.sq + row) * p.heads + h_first) * D + dcol0 + 2 * t;
+#pragma unroll
+      for (int n = 0; n < M::kDT; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * n) =
+            __floats2bfloat162_rn(acc[n][2 * r] * p.scale,
+                                  acc[n][2 * r + 1] * p.scale);
+    } else {
+      if (row >= p.skv) continue;
+      const int64_t at = (b * p.skv + row) * p.kv_heads + hk;
+      if (partial != nullptr) {  // [splits, B, Skv, Hkv, D + Dv] float32
+        float* out = partial +
+                     (static_cast<int64_t>(blockIdx.z) * p.batch * p.skv *
+                          p.kv_heads + at) * (D + DV) + 2 * t;
+#pragma unroll
+        for (int n = 0; n < M::kDT; ++n)
+          *reinterpret_cast<float2*>(out + dcol0 + 8 * n) =
+              make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+        if (does_v) {
+#pragma unroll
+          for (int n = 0; n < M::kVT; ++n)
+            *reinterpret_cast<float2*>(out + D + vcol0 + 8 * n) =
+                make_float2(acc_v[n][2 * r], acc_v[n][2 * r + 1]);
+        }
+      } else {
+        bf16* dk = static_cast<bf16*>(p.dk) + at * D + dcol0 + 2 * t;
+#pragma unroll
+        for (int n = 0; n < M::kDT; ++n)
+          *reinterpret_cast<__nv_bfloat162*>(dk + 8 * n) =
+              __floats2bfloat162_rn(acc[n][2 * r] * p.scale,
+                                    acc[n][2 * r + 1] * p.scale);
+        if (does_v) {
+          bf16* dv = static_cast<bf16*>(p.dv) + at * DV + vcol0 + 2 * t;
+#pragma unroll
+          for (int n = 0; n < M::kVT; ++n)
+            *reinterpret_cast<__nv_bfloat162*>(dv + 8 * n) =
+                __floats2bfloat162_rn(acc_v[n][2 * r], acc_v[n][2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// dK, dV of 64 keys of one (b, kv head), over blockIdx.z's share of the
+// group's query heads
+template <int D, int DV>
+__global__ void __launch_bounds__(MmaBwd<D, DV>::kThreads)
+flash_bwd_dkdv_mma_kernel(const BwdParams p, float* partial) {
+  bwd_mma_block<D, DV, false>(p, partial);
+}
+
+// dQ of 64 q rows of one (b, head)
+template <int D, int DV>
+__global__ void __launch_bounds__(MmaBwd<D, DV>::kThreads)
+flash_bwd_dq_mma_kernel(const BwdParams p) {
+  bwd_mma_block<D, DV, true>(p, nullptr);
+}
+
+// dk = bf16(scale sum_z partial_z[.., :D]), dv = bf16(sum_z partial_z[.., D:])
+// in split order z = 0, 1, ..: pairs of elements of [B, Skv, Hkv, D + Dv]
+__global__ void __launch_bounds__(256)
+flash_bwd_reduce_kernel(const float* partial, int splits, int64_t pairs,
+                        int d, int dv, float scale, __nv_bfloat16* dk,
+                        __nv_bfloat16* dv_out) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < pairs; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    float2 sum = make_float2(0.0f, 0.0f);
+    for (int z = 0; z < splits; ++z) {
+      const float2 x =
+          reinterpret_cast<const float2*>(partial)[z * pairs + i];
+      sum.x += x.x;
+      sum.y += x.y;
+    }
+    const int64_t e = 2 * i, row = e / (d + dv);
+    const int c = static_cast<int>(e % (d + dv));
+    if (c < d) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + row * d + c) =
+          __floats2bfloat162_rn(sum.x * scale, sum.y * scale);
+    } else {
+      *reinterpret_cast<__nv_bfloat162*>(dv_out + row * dv + c - d) =
+          __floats2bfloat162_rn(sum.x, sum.y);
+    }
+  }
+}
+
 // --- launch ------------------------------------------------------------------
 
 template <typename Kernel>
@@ -1150,46 +1657,130 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T, int D, int DV>
-cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
+template <typename T>
+cudaError_t launch_delta(const BwdParams& p, int dv, cudaStream_t stream) {
   const int64_t rows = static_cast<int64_t>(p.batch) * p.heads * p.sq;
   const int64_t warps = kThreads / 32;
-  if (rows > 0) {
-    flash_bwd_delta_kernel<T>
-        <<<static_cast<unsigned>((rows + warps - 1) / warps), kThreads, 0,
-           stream>>>(p, DV);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  const size_t bytes = bwd_smem_bytes<D, DV>();
-  cudaError_t err = allow_smem(flash_bwd_dkdv_kernel<T, D, DV>, bytes);
-  if (err == cudaSuccess) err = allow_smem(flash_bwd_dq_kernel<T, D, DV>, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 kv_grid((p.skv + kB - 1) / kB, p.batch * p.kv_heads);
-  flash_bwd_dkdv_kernel<T, D, DV><<<kv_grid, kThreads, bytes, stream>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 q_grid((p.sq + kB - 1) / kB, p.batch * p.heads);
-  flash_bwd_dq_kernel<T, D, DV><<<q_grid, kThreads, bytes, stream>>>(p);
+  if (rows == 0) return cudaSuccess;
+  flash_bwd_delta_kernel<T>
+      <<<static_cast<unsigned>((rows + warps - 1) / warps), kThreads, 0,
+         stream>>>(p, dv);
   return cudaGetLastError();
 }
 
+// float32: delta, then the CUDA-core dK/dV and dQ kernels
+template <int D, int DV>
+cudaError_t launch_f32(const BwdParams& p, cudaStream_t stream) {
+  cudaError_t err = launch_delta<float>(p, DV, stream);
+  if (err != cudaSuccess) return err;
+  const size_t bytes = bwd_smem_bytes<D, DV>();
+  err = allow_smem(flash_bwd_dkdv_kernel<float, D, DV>, bytes);
+  if (err == cudaSuccess)
+    err = allow_smem(flash_bwd_dq_kernel<float, D, DV>, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 kv_grid((p.skv + kB - 1) / kB, p.batch * p.kv_heads);
+  flash_bwd_dkdv_kernel<float, D, DV>
+      <<<kv_grid, kThreads, bytes, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 q_grid((p.sq + kB - 1) / kB, p.batch * p.heads);
+  flash_bwd_dq_kernel<float, D, DV><<<q_grid, kThreads, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D, int DV>
+cudaError_t allow_mma_smem() {
+  using M = MmaBwd<D, DV>;
+  const cudaError_t err =
+      allow_smem(flash_bwd_dkdv_mma_kernel<D, DV>, M::smem(4));
+  if (err != cudaSuccess) return err;
+  return allow_smem(flash_bwd_dq_mma_kernel<D, DV>, M::smem(2));
+}
+
+// bfloat16: delta, dK/dV (the group's heads over `splits` blocks), the sum
+// of the partials when splits > 1, dQ
+template <int D, int DV>
+cudaError_t launch_mma(const BwdParams& p, int splits, float* partial,
+                       cudaStream_t stream) {
+  using M = MmaBwd<D, DV>;
+  const int group = p.heads / p.kv_heads;
+  if (splits < 1 || group % splits != 0 || (splits > 1 && partial == nullptr))
+    return cudaErrorInvalidValue;
+  cudaError_t err = launch_delta<__nv_bfloat16>(p, DV, stream);
+  if (err == cudaSuccess) err = allow_mma_smem<D, DV>();
+  if (err != cudaSuccess) return err;
+  const dim3 kv_grid((p.skv + M::kRows - 1) / M::kRows,
+                     p.batch * p.kv_heads, splits);
+  flash_bwd_dkdv_mma_kernel<D, DV><<<kv_grid, M::kThreads, M::smem(4),
+                                     stream>>>(p, splits > 1 ? partial
+                                                             : nullptr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (splits > 1) {
+    const int64_t pairs =
+        static_cast<int64_t>(p.batch) * p.skv * p.kv_heads * (D + DV) / 2;
+    const int64_t blocks = std::min<int64_t>((pairs + 255) / 256, 132 * 16);
+    flash_bwd_reduce_kernel<<<static_cast<unsigned>(blocks), 256, 0,
+                              stream>>>(
+        partial, splits, pairs, D, DV, p.scale,
+        static_cast<__nv_bfloat16*>(p.dk), static_cast<__nv_bfloat16*>(p.dv));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 q_grid((p.sq + M::kRows - 1) / M::kRows, p.batch * p.heads);
+  flash_bwd_dq_mma_kernel<D, DV><<<q_grid, M::kThreads, M::smem(2),
+                                   stream>>>(p);
+  return cudaGetLastError();
+}
+
+// out: own rows of a block, rows of a streamed tile, threads, shared bytes
+// of the dK/dV and dQ kernels, and how many blocks of each fit on one SM
+template <int D, int DV>
+cudaError_t geometry(int64_t* out) {
+  using M = MmaBwd<D, DV>;
+  cudaError_t err = allow_mma_smem<D, DV>();
+  if (err != cudaSuccess) return err;
+  int kv_blocks = 0, q_blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &kv_blocks, flash_bwd_dkdv_mma_kernel<D, DV>, M::kThreads, M::smem(4));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &q_blocks, flash_bwd_dq_mma_kernel<D, DV>, M::kThreads, M::smem(2));
+  if (err != cudaSuccess) return err;
+  const int64_t values[] = {M::kRows, M::kStep, M::kThreads,
+                            static_cast<int64_t>(M::smem(4)),
+                            static_cast<int64_t>(M::smem(2)), kv_blocks,
+                            q_blocks};
+  for (int i = 0; i < 7; ++i) out[i] = values[i];
+  return cudaSuccess;
+}
+
+#define FLASH_BWD_DIMS(X) \
+  X(16, 16) X(16, 8) X(32, 32) X(32, 16) X(64, 64) X(64, 32) X(80, 80) \
+  X(128, 128) X(128, 64) X(192, 128) X(256, 256) X(256, 128)
+
 template <typename T>
-cudaError_t dispatch(const BwdParams& p, int d, int dv, cudaStream_t s) {
+cudaError_t dispatch(const BwdParams& p, int d, int dv, int splits,
+                     float* partial, cudaStream_t s) {
+  if constexpr (sizeof(T) == sizeof(float)) {
+    if (splits != 1) return cudaErrorInvalidValue;
 #define FLASH_BWD_CASE(D_, DV_) \
-  if (d == D_ && dv == DV_) return launch<T, D_, DV_>(p, s);
-  FLASH_BWD_CASE(16, 16)
-  FLASH_BWD_CASE(16, 8)
-  FLASH_BWD_CASE(32, 32)
-  FLASH_BWD_CASE(32, 16)
-  FLASH_BWD_CASE(64, 64)
-  FLASH_BWD_CASE(64, 32)
-  FLASH_BWD_CASE(80, 80)
-  FLASH_BWD_CASE(128, 128)
-  FLASH_BWD_CASE(128, 64)
-  FLASH_BWD_CASE(192, 128)
-  FLASH_BWD_CASE(256, 256)
-  FLASH_BWD_CASE(256, 128)
+    if (d == D_ && dv == DV_) return launch_f32<D_, DV_>(p, s);
+    FLASH_BWD_DIMS(FLASH_BWD_CASE)
+#undef FLASH_BWD_CASE
+  } else {
+#define FLASH_BWD_CASE(D_, DV_) \
+    if (d == D_ && dv == DV_) return launch_mma<D_, DV_>(p, splits, partial, s);
+    FLASH_BWD_DIMS(FLASH_BWD_CASE)
+#undef FLASH_BWD_CASE
+  }
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t dispatch_geometry(int d, int dv, int64_t* out) {
+#define FLASH_BWD_CASE(D_, DV_) \
+  if (d == D_ && dv == DV_) return geometry<D_, DV_>(out);
+  FLASH_BWD_DIMS(FLASH_BWD_CASE)
 #undef FLASH_BWD_CASE
   return cudaErrorInvalidValue;
 }
@@ -1201,27 +1792,45 @@ extern "C" {
 
 // q, k, v, o, dout (strided, last dimension contiguous), lse [B, H, Sq] and
 // the delta scratch [B, H, Sq] (float32), dq, dk, dv (contiguous, written),
-// then the five tensors' batch / sequence / head strides in elements
+// the dK/dV partials scratch (float32 [splits, B, Skv, Hkv, D + Dv], or null
+// when splits is 1; bfloat16 only: float32 takes splits 1), then the five
+// tensors' batch / sequence / head strides in elements
 #define FLASH_BWD_ENTRY(NAME, T)                                              \
   int NAME(const void* q, const void* k, const void* v, const void* o,       \
            const void* dout, const void* lse, void* delta, void* d_q,        \
-           void* d_k, void* d_v, int64_t q_sb, int64_t q_ss, int64_t q_sh,   \
-           int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,           \
-           int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss,           \
-           int64_t o_sh, int64_t do_sb, int64_t do_ss, int64_t do_sh,        \
-           int batch, int heads, int kv_heads, int sq, int skv, int d,       \
-           int dv, int causal, int window, float scale, void* stream) {      \
+           void* d_k, void* d_v, void* partial, int64_t q_sb, int64_t q_ss,  \
+           int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,           \
+           int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb,           \
+           int64_t o_ss, int64_t o_sh, int64_t do_sb, int64_t do_ss,         \
+           int64_t do_sh, int batch, int heads, int kv_heads, int sq,        \
+           int skv, int d, int dv, int causal, int window, int splits,       \
+           float scale, void* stream) {                                      \
+    constexpr int64_t kPer16 = 16 / sizeof(T);                               \
+    const bool aligned =                                                      \
+        (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |   \
+         reinterpret_cast<uintptr_t>(v) |                                    \
+         reinterpret_cast<uintptr_t>(dout)) % 16 == 0 &&                     \
+        (q_sb | q_ss | q_sh | k_sb | k_ss | k_sh | v_sb | v_ss | v_sh |      \
+         do_sb | do_ss | do_sh) % kPer16 == 0;                               \
     const bwd::BwdParams p{q, k, v, o, dout, static_cast<const float*>(lse),  \
                       static_cast<float*>(delta), d_q, d_k, d_v,             \
                       q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,  \
                       o_sb, o_ss, o_sh, do_sb, do_ss, do_sh, batch, heads,   \
-                      kv_heads, sq, skv, causal, window, scale};             \
-    return static_cast<int>(                                                  \
-        bwd::dispatch<T>(p, d, dv, static_cast<cudaStream_t>(stream)));       \
+                      kv_heads, sq, skv, causal, window, scale,              \
+                      static_cast<int>(aligned)};                            \
+    return static_cast<int>(bwd::dispatch<T>(                                 \
+        p, d, dv, splits, static_cast<float*>(partial),                      \
+        static_cast<cudaStream_t>(stream)));                                  \
   }
 
 FLASH_BWD_ENTRY(flash_attention_bwd_float32, float)
 FLASH_BWD_ENTRY(flash_attention_bwd_bfloat16, __nv_bfloat16)
 #undef FLASH_BWD_ENTRY
+
+// the bf16 backward's tiles, threads, shared bytes and blocks an SM at
+// (d, dv), into out[7] (see bwd::geometry); a CUDA error code, 0 on success
+int flash_attention_bwd_geometry(int d, int dv, int64_t* out) {
+  return static_cast<int>(bwd::dispatch_geometry(d, dv, out));
+}
 
 }  // extern "C"

@@ -22,9 +22,17 @@ row's scaled scores, ``[B, H, Sq]``, which the backward reads; without it the
 kernel gets a null pointer and runs as it always did.  The backward
 (:func:`flash_attention_bwd`) lives in the same source and library, as a
 second counted kernel (``LAUNCHES["flash_attention_bwd"]``, one per
-backward, whose three kernels it launches): float32 arithmetic on the CUDA
-cores for both dtypes, no atomics, so two calls give the same bits.  It has
-no fallback either: a failed build or launch raises.
+backward, whose kernels it launches), chosen by dtype as the forward is:
+bfloat16 on the tensor cores (``mma.sync`` bf16 with float32 accumulators;
+S and dP from the bf16 inputs, dV, dK and dQ as split products of P and dS
+in bf16 hi + lo; q/dO or k/v tiles in a two-stage ``cp.async`` ring),
+float32 on the CUDA cores in float32.  Delta, dK/dV per 64-key block and dQ
+per 64-row block, no atomics, so two calls give the same bits: where a kv
+group's query heads are split over several dK/dV blocks
+(:func:`head_splits`), each writes float32 partials to a scratch this
+wrapper allocates and one more pass sums them in a fixed order.  It has no
+fallback either: a failed build or launch raises, and no bf16 call reaches
+the float32 kernels.
 
 The kernels read q, k and v in the reference's ``[B, S, H, D]`` layout
 through their strides (the last dimension must be contiguous), so the
@@ -35,6 +43,9 @@ same kernel.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+import heapq
 import math
 from pathlib import Path
 from typing import Optional
@@ -57,10 +68,19 @@ SYMBOLS = {s: (PTR,) * 5 + (I64,) * 12 + (I32,) * 9 + (F32, PTR)
 BWD_NAME = "flash_attention_bwd"
 BWD_INSTANTIATIONS = {torch.float32: "flash_attention_bwd_float32",
                       torch.bfloat16: "flash_attention_bwd_bfloat16"}
-#: q, k, v, o, dout, lse, delta, dq, dk, dv, 15 strides, batch, heads,
-#: kv_heads, sq, skv, d, dv, causal, window, scale, stream
-SYMBOLS.update({s: (PTR,) * 10 + (I64,) * 15 + (I32,) * 9 + (F32, PTR)
+#: q, k, v, o, dout, lse, delta, dq, dk, dv, partial, 15 strides, batch,
+#: heads, kv_heads, sq, skv, d, dv, causal, window, splits, scale, stream
+SYMBOLS.update({s: (PTR,) * 11 + (I64,) * 15 + (I32,) * 10 + (F32, PTR)
                 for s in BWD_INSTANTIATIONS.values()})
+#: the bf16 backward's geometry at (d, dv): d, dv, int64 out[7]
+BWD_GEOMETRY = "flash_attention_bwd_geometry"
+SYMBOLS[BWD_GEOMETRY] = (I32, I32, PTR)
+BWD_GEOMETRY_KEYS = ("rows", "step", "threads", "dkdv_smem_bytes",
+                     "dq_smem_bytes", "dkdv_blocks_per_sm",
+                     "dq_blocks_per_sm")
+#: the bf16 backward's design, as reports name it
+BWD_DESIGN = ("mma.sync m16n8k16 bf16, split P/dS products, 64 own rows x "
+              "32-row cp.async stream tiles, 8 warps, no atomics")
 #: (D, Dv) pairs the source instantiates, forward and backward
 HEAD_DIMS = frozenset({(16, 16), (16, 8), (32, 32), (32, 16), (64, 64),
                        (64, 32), (80, 80), (128, 128), (128, 64), (192, 128),
@@ -71,6 +91,16 @@ LIB = _build.Library(NAME, SOURCE, SYMBOLS, kernels=(NAME, BWD_NAME))
 #: launches of each kernel since the last ``LIB.reset_launches()``
 LAUNCHES = LIB.launches
 
+
+
+def _strides(*tensors: torch.Tensor) -> list:
+    """The batch, sequence and head strides of each tensor, in elements,
+    with 0 for a dimension of size 1: its stride is never used, and
+    PyTorch leaves any value there (``contiguous()`` of a batch of one may
+    keep batch stride 1), which would fail the kernels' 16-byte test and
+    send them to plain loads."""
+    return [st if n > 1 else 0 for t in tensors
+            for n, st in zip(t.shape[:3], t.stride()[:3])]
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -129,13 +159,97 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if lse:
             stats.fill_(math.inf)
     elif o.numel():
-        strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+        strides = _strides(q, k, v, o)
         LIB.launch(INSTANTIATIONS[q.dtype], NAME, q.device, q.data_ptr(),
                    k.data_ptr(), v.data_ptr(), o.data_ptr(),
                    stats.data_ptr() if lse else None, *strides, B, H, Hkv,
                    Sq, Skv, D, Dv, int(bool(causal)), int(window or 0),
                    1.0 / math.sqrt(D))
     return (o, stats) if lse else o
+
+
+def band_tiles(sq: int, skv: int, causal: bool, window: Optional[int],
+               rows: int, step: int) -> list:
+    """How many ``step``-row q tiles each ``rows``-key block of the dK/dV
+    kernel visits: the q rows of its keys' band, from its first key when
+    causal to its last key's window end (the kernel's own range)."""
+    causal = causal or window is not None
+    out = []
+    for r0 in range(0, skv, rows):
+        begin = r0 if causal else 0
+        end = min(sq, r0 + rows - 1 + window) if window else sq
+        out.append(max(0, -(-(end - begin) // step)))
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def head_splits(tiles: tuple, batch_kv: int, group: int, slots: int) -> int:
+    """How many dK/dV blocks share the ``group`` query heads of one kv
+    head.  ``tiles``: the q tiles each key block visits (:func:`band_tiles`)
+    for each of ``batch_kv`` (batch, kv head) pairs; ``slots``: blocks the
+    card runs at once (SMs x blocks an SM).  For each divisor n of the group
+    the blocks, n per key block, each ``tiles x group / n`` steps (plus 2
+    for its own tiles and stores), go in launch order to the first free
+    slot; the least n that finishes within 5% of the earliest wins (more
+    splits write more partials and lengthen their sum).  One block per key
+    block leaves SMs idle at MQA with few key tiles, and a causal band
+    makes the last key blocks' work short, so a count of blocks alone
+    misjudges both (``chip_smoke.py`` times every divisor at the GQA/MQA
+    training shapes beside this choice)."""
+    slots = max(1, slots)
+    if len(tiles) * batch_kv >= 8 * slots:   # enough blocks to balance
+        return 1
+    ends = {}
+    for n in range(1, group + 1):
+        if group % n:
+            continue
+        free = [0] * slots
+        for _ in range(n * batch_kv):
+            for t in tiles:
+                heapq.heappush(free, heapq.heappop(free) + t * group // n + 2)
+        ends[n] = max(free)
+    return min(n for n, end in ends.items()
+               if end <= 1.05 * min(ends.values()))
+
+
+_GEOMETRY: dict = {}
+
+
+def bwd_geometry(d: int, dv: int, device: torch.device) -> dict:
+    """The bf16 backward's tiles, threads, shared bytes and blocks an SM at
+    head dims (d, dv), as the built library reports them (it alone decides
+    them); read once per (d, dv, device)."""
+    key = (d, dv, torch.device(device))
+    if key not in _GEOMETRY:
+        out = (ctypes.c_int64 * len(BWD_GEOMETRY_KEYS))()
+        with torch.cuda.device(device):
+            err = getattr(LIB.load(), BWD_GEOMETRY)(d, dv, out)
+        if err != 0:
+            raise RuntimeError(f"{BWD_GEOMETRY}({d}, {dv}) failed: CUDA "
+                               f"error {err}")
+        _GEOMETRY[key] = dict(zip(BWD_GEOMETRY_KEYS, out))
+    return dict(_GEOMETRY[key])
+
+
+def bwd_plan(q: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+             window: Optional[int] = None) -> dict:
+    """What the bf16 backward launches for these inputs and mask: its
+    geometry, the head splits, the dK/dV grid (key blocks, B * Hkv,
+    splits), the dQ grid (q blocks, B * H) and the partials' scratch
+    bytes."""
+    B, Sq, H, D = q.shape
+    _, Skv, Hkv, Dv = v.shape
+    geo = bwd_geometry(D, Dv, q.device)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    key_blocks = -(-Skv // geo["rows"])
+    tiles = band_tiles(Sq, Skv, causal, window, geo["rows"], geo["step"])
+    splits = head_splits(tuple(tiles), B * Hkv, H // Hkv,
+                         sms * geo["dkdv_blocks_per_sm"])
+    return {"design": BWD_DESIGN, **geo, "sms": sms, "head_splits": splits,
+            "dkdv_grid": [key_blocks, B * Hkv, splits],
+            "dq_grid": [-(-Sq // geo["rows"]), B * H],
+            "partial_bytes": (4 * splits * B * Skv * Hkv * (D + Dv)
+                              if splits > 1 else 0)}
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -167,11 +281,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    strides = [s for t in (q, k, v, o, do) for s in t.stride()[:3]]
+    splits, partial = 1, None
+    if q.dtype == torch.bfloat16:
+        splits = bwd_plan(q, v, causal=causal, window=window)["head_splits"]
+        if splits > 1:   # every element written by its split's block
+            partial = torch.empty((splits, B, Skv, Hkv, D + Dv),
+                                  dtype=torch.float32, device=q.device)
+    strides = _strides(q, k, v, o, do)
     LIB.launch(BWD_INSTANTIATIONS[q.dtype], BWD_NAME, q.device,
                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-               dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *strides, B, H,
-               Hkv, Sq, Skv, D, Dv, int(bool(causal)), int(window or 0),
-               1.0 / math.sqrt(D))
+               dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+               partial.data_ptr() if partial is not None else None,
+               *strides, B, H, Hkv, Sq, Skv, D, Dv, int(bool(causal)),
+               int(window or 0), splits, 1.0 / math.sqrt(D))
     return dq, dk, dv

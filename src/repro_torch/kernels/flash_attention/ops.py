@@ -13,7 +13,8 @@ The op is differentiable on every path.  A CPU tensor (or ``"ref"``) runs
 the plain version under autograd.  On the card, a call whose q, k or v needs
 a gradient goes through :class:`FlashAttention`, an autograd Function whose
 forward is the kernel with its log-sum-exp output and whose backward is the
-hand-written backward kernel (``kernel.flash_attention_bwd``); a call that
+hand-written backward kernel (``kernel.flash_attention_bwd``: bf16 on the
+tensor cores, float32 on the CUDA cores, as the forward); a call that
 needs none (inference, ``torch.inference_mode``) is the kernel alone, with
 no log-sum-exp.  A backward that cannot build or launch raises: nothing
 takes the plain autograd path on the card unless asked for by ``"ref"``.

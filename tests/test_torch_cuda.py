@@ -30,7 +30,10 @@ lru_scan_bwd) against their plain versions' autograd — flash within 1e-4 of
 each gradient's max |g| in float32 and 4e-2 + 4e-2 |g| in bfloat16 (the
 forward's rule; the plain side computes in float32 from the same bf16
 inputs), lru_scan within 1e-5 of max |g| plus 1e-5 |g| in float32 — two
-backward calls bit-equal, the float32 lru backward equal to its emulated
+backward calls bit-equal; the bf16 flash backward (tensor cores) at every
+head-dim pair at a ragged S, on unaligned strided views, and at MQA with
+its heads split over blocks (there also within the smoke's limit (1) of
+its dense float32 formula), the float32 lru backward equal to its emulated
 order (``tests/_lru_kernel_order_bwd.py``) bit for bit, and a reduced
 recurrentgemma-2b train step through both backward kernels against the same
 step on the CPU (loss 1e-4, every gradient leaf within 1e-4 of its max
@@ -705,6 +708,97 @@ def test_flash_bwd_kernel_matches_plain_autograd(cuda_device, b, s, h, hkv, d,
             assert float((a - w).abs().max()) <= 1e-4 * float(w.abs().max())
         else:
             assert bool(((a - w).abs() <= 4e-2 + 4e-2 * w.abs()).all())
+
+
+def _bf16_bwd_against_plain(q, k, v, g, **kw):
+    """The bf16 backward kernel through autograd against the plain version's
+    autograd by the forward's rule, 4e-2 + 4e-2 |g|, two calls bit-equal."""
+    before = flash_kernel.LAUNCHES["flash_attention_bwd"]
+    got, again = (_grads_of(lambda *t: flash_ops.flash_attention(*t, **kw),
+                            (q, k, v), g)[1] for _ in range(2))
+    assert flash_kernel.LAUNCHES["flash_attention_bwd"] == before + 2
+    _, want = _grads_of(lambda *t: flash_ops.flash_attention(
+        *t, backend="ref", block_q=64, block_k=64, **kw),
+        [t.contiguous() for t in (q, k, v)], g)
+    torch.cuda.synchronize()
+    for a, a2, w in zip(got, again, want):
+        assert a.dtype == torch.bfloat16 and a.shape == w.shape
+        assert torch.equal(a, a2)
+        a, w = a.float(), w.float()
+        assert bool(((a - w).abs() <= 4e-2 + 4e-2 * w.abs()).all())
+
+
+@pytest.mark.parametrize("d,dv", sorted(flash_kernel.HEAD_DIMS))
+def test_flash_bwd_bf16_every_head_dims_ragged(cuda_device, d, dv):
+    """The tensor-core backward at every (D, Dv) it is built for, S 333 (no
+    multiple of its 64-row blocks or 32-row tiles), GQA 4/2, causal with a
+    window and without, and the encoder mask."""
+    q, k, v, g = (torch.from_numpy(RNG.normal(size=shape)).to(
+        cuda_device, torch.bfloat16) for shape in (
+            (2, 333, 4, d), (2, 333, 2, d), (2, 333, 2, dv), (2, 333, 4, dv)))
+    for causal, window in ((True, None), (True, 100), (False, None)):
+        _bf16_bwd_against_plain(q, k, v, g, causal=causal, window=window)
+
+
+def test_flash_bwd_bf16_reads_unaligned_strided_inputs(cuda_device):
+    """bf16 views whose rows are not 16-byte aligned take the plain loads
+    of the same backward kernels."""
+    qkv = torch.from_numpy(RNG.normal(size=(1, 150, 3, 2, 72))).to(
+        cuda_device, torch.bfloat16)
+    q, k, v = (t[..., 1:65] for t in qkv.unbind(2))
+    assert q.data_ptr() % 16 != 0 and q.stride(-1) == 1
+    g = torch.from_numpy(RNG.normal(size=(1, 150, 2, 64))).to(
+        cuda_device, torch.bfloat16)
+    _bf16_bwd_against_plain(q, k, v, g, causal=True)
+
+
+def test_flash_bwd_bf16_unit_batch_stride(cuda_device):
+    """A batch-1 dO whose batch stride is 1 (as autograd hands the model's
+    gradient on) gives the same bits as a fresh contiguous copy: the wrapper
+    passes 0 for a size-1 dimension's stride."""
+    q, k, v = (torch.from_numpy(RNG.normal(size=shape)).to(
+        cuda_device, torch.bfloat16) for shape in (
+            (1, 300, 4, 64), (1, 300, 1, 64), (1, 300, 1, 64)))
+    o, lse = flash_kernel.flash_attention(q, k, v, causal=True, lse=True)
+    g = torch.from_numpy(RNG.normal(size=(1, 300, 4, 64))).to(
+        cuda_device, torch.bfloat16)
+    odd = torch.empty(g.numel(), dtype=g.dtype, device=cuda_device)
+    odd = odd.as_strided(g.shape, (1, 256, 64, 1)).copy_(g)
+    assert odd.is_contiguous() and odd.stride(0) == 1
+    got = flash_kernel.flash_attention_bwd(q, k, v, o, lse, odd)
+    want = flash_kernel.flash_attention_bwd(q, k, v, o, lse, g.clone())
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_flash_bwd_bf16_mqa_head_splits(cuda_device):
+    """MQA 10/1 at S 2 304 (36 key blocks of one kv head): the group's heads
+    split over several dK/dV blocks whose float32 partials one more pass
+    sums in order; against the plain autograd, two calls bit-equal, and
+    against the backward's dense float32 formula within ``chip_smoke.py``'s
+    limit (1), dO at a unit max."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    q, k, v, g = (torch.from_numpy(RNG.normal(size=shape)).to(
+        cuda_device, torch.bfloat16) for shape in (
+            (1, 2304, 10, 64), (1, 2304, 1, 64), (1, 2304, 1, 64),
+            (1, 2304, 10, 64)))
+    plan = flash_kernel.bwd_plan(q, v, causal=True, window=2048)
+    assert plan["head_splits"] > 1 and plan["dkdv_grid"][2] > 1
+    _bf16_bwd_against_plain(q, k, v, g, causal=True, window=2048)
+    o, lse = flash_kernel.flash_attention(q, k, v, causal=True, window=2048,
+                                          lse=True)
+    g, _ = smoke.unit_scaled(g)
+    got = flash_kernel.flash_attention_bwd(q, k, v, o, lse, g, causal=True,
+                                           window=2048)
+    dense = smoke.dense_flash_bwd(torch, q, k, v, o, lse, g, True, 2048)
+    readings = smoke.shares(torch, got, dense, smoke.FORMULA_BWD_REL,
+                            smoke.FLASH_GRAD_TOL)
+    assert all(r["share"] <= 1.0 for r in readings.values()), readings
 
 
 def test_flash_forward_writes_lse_only_when_asked(cuda_device):

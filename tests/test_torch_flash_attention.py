@@ -275,6 +275,217 @@ def test_backward_kernel_formula(causal, window):
         _assert_grad_close(a.numpy(), w.numpy(), name)
 
 
+def _smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _emulate_bwd_kernel(q, k, v, o, lse, do, causal, window, split,
+                        splits=1):
+    """The bf16 tensor-core backward's rounding in plain PyTorch, on the
+    values it is given: delta = rowsum(dO o) in float32; S = q k^T and
+    dP = dO v^T from the operands as they are (bf16 x bf16 products are
+    exact in float32, so only the summation order differs from the card);
+    P = exp2(S scale log2 e - lse log2 e) in the mask, 0 outside;
+    dS = P (dP - delta); P and dS in bf16, split into hi = bf16(x) and
+    lo = bf16(x - hi) when ``split``, one bf16 otherwise.  dK/dV: blocks of
+    64 keys, each summing the float32 products of 32-row q tiles from its
+    band's first row, over the group's heads in ``splits`` partials that
+    one more pass adds in order; dQ: blocks of 64 rows summing the products
+    of 32-key tiles from their band's first key.  Returns float32 dq, dk, dv
+    before the output's rounding."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv, Dv = v.shape[1:]
+    group, scale, log2e = H // Hkv, 1.0 / D ** 0.5, 1.4426950408889634
+    causal = causal or window is not None
+    i, j = torch.arange(Sq)[:, None], torch.arange(Skv)[None, :]
+    mask = torch.ones(Sq, Skv, dtype=torch.bool)
+    if causal:
+        mask = i >= j
+        if window is not None:
+            mask &= i - j < window
+
+    def parts(x):
+        hi = x.bfloat16().float()
+        return (hi, (x - hi).bfloat16().float()) if split else (hi,)
+
+    dq = torch.zeros(B, Sq, H, D)
+    dk = torch.zeros(B, Skv, Hkv, D)
+    dv = torch.zeros(B, Skv, Hkv, Dv)
+    for b in range(B):
+        qf, of, dof = (t[b].float().transpose(0, 1) for t in (q, o, do))
+        kf = k[b].float().transpose(0, 1).repeat_interleave(group, 0)
+        vf = v[b].float().transpose(0, 1).repeat_interleave(group, 0)
+        delta = (dof * of).sum(-1, keepdim=True)
+        l2 = (lse[b] * log2e)[..., None]
+        p = torch.where(mask, torch.exp2((qf @ kf.transpose(1, 2))
+                                         * (scale * log2e) - l2), 0.0)
+        ds = p * (dof @ vf.transpose(1, 2) - delta)
+        p_parts, ds_parts = parts(p), parts(ds)
+        for r0 in range(0, Skv, 64):
+            keys = slice(r0, min(r0 + 64, Skv))
+            q_begin = r0 if causal else 0
+            q_end = min(Sq, r0 + 63 + window) if window else Sq
+            for hk in range(Hkv):
+                total_k = total_v = 0.0
+                for z in range(splits):
+                    acc_k = torch.zeros(keys.stop - r0, D)
+                    acc_v = torch.zeros(keys.stop - r0, Dv)
+                    per = group // splits
+                    for h in range(hk * group + z * per,
+                                   hk * group + (z + 1) * per):
+                        for q0 in range(q_begin, q_end, 32):
+                            rows = slice(q0, min(q0 + 32, Sq))
+                            for x in p_parts:
+                                acc_v += x[h, rows, keys].T @ dof[h, rows]
+                            for x in ds_parts:
+                                acc_k += x[h, rows, keys].T @ qf[h, rows]
+                    total_k, total_v = total_k + acc_k, total_v + acc_v
+                dk[b, keys, hk] = total_k * scale
+                dv[b, keys, hk] = total_v
+        for r0 in range(0, Sq, 64):
+            rows = slice(r0, min(r0 + 64, Sq))
+            k_begin = max(0, r0 - window + 1) if window else 0
+            k_end = min(Skv, rows.stop) if causal else Skv
+            for h in range(H):
+                acc = torch.zeros(rows.stop - r0, D)
+                for k0 in range(k_begin, k_end, 32):
+                    cols = slice(k0, min(k0 + 32, Skv))
+                    for x in ds_parts:
+                        acc += x[h, rows, cols] @ kf[h, cols]
+                dq[b, rows, h] = acc * scale
+    return dq, dk, dv
+
+
+def _formula_inputs(tq, tk, tv, do, causal, window):
+    """o from the plain forward and the float32 log-sum-exp of each row's
+    scaled scores in the mask, as the forward kernel hands them on."""
+    o = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    g = tq.shape[2] // tk.shape[2]
+    sc = torch.einsum("bqhd,bkhd->bhqk", tq.float(),
+                      tk.float().repeat_interleave(g, dim=2))
+    sc = sc / tq.shape[-1] ** 0.5
+    i = torch.arange(tq.shape[1])
+    ok = torch.ones(tq.shape[1], tk.shape[1], dtype=torch.bool)
+    if causal or window is not None:
+        ok = i[:, None] >= i[None, :]
+        if window is not None:
+            ok &= i[:, None] - i[None, :] < window
+    return o, torch.logsumexp(sc.masked_fill(~ok, float("-inf")), dim=-1)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 20),
+                                           (False, None)])
+def test_bwd_emulation_matches_formula(causal, window):
+    """The emulation of the bf16 backward's split products, before its
+    output rounding, against the float32 formula of
+    ``test_backward_kernel_formula`` (GQA, ragged S) on the same bf16
+    values, written densely (``chip_smoke.dense_flash_bwd``) and through
+    the plain version's autograd, by the same rule: the split leaves each
+    P and dS within 2^-16 of itself, so only float32 rounding separates
+    them."""
+    b, s, h, hkv, d, dv = 2, 77, 4, 2, 16, 8
+    tq, tk, tv = _inputs((b, s, h, hkv, d, dv), "bfloat16", seed=9)
+    do = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(b, s, h, dv)).astype(np.float32)).bfloat16()
+    tq, tk, tv, do = (t.float() for t in (tq, tk, tv, do))
+    o, lse = _formula_inputs(tq, tk, tv, do, causal, window)
+    got = _emulate_bwd_kernel(tq, tk, tv, o, lse, do, causal, window,
+                              split=True, splits=2)
+    formula = _smoke().dense_flash_bwd(torch, tq, tk, tv, o, lse, do,
+                                       causal, window)
+    autograd = _grads(tq, tk, tv, do, causal=causal, window=window,
+                      block_q=16, block_k=16)
+    for want in (formula, autograd):
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            _assert_grad_close(a.numpy(), w.numpy(), name)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_mma_bwd_needs_the_split_products():
+    """Why the bf16 backward spends a second product on each of dV, dK and
+    dQ: at inputs of the training statistics (S 2 304, MQA 2/1, D 256,
+    window 2 048, q/k/v ~ N(0, 1) in bf16, dO at a unit max), its rounding
+    with P and dS split into bf16 hi + lo, then rounded to bf16 once, stays
+    within ``chip_smoke.py``'s limit (1) against its dense float32 formula
+    (2^-8 |dense| + 1e-4 max|dense| per tensor), and the same arithmetic
+    with P and dS in one bf16 breaks it in each of dq, dk and dv."""
+    smoke = _smoke()
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .bfloat16()
+               for shape in ((1, 2304, 2, 256), (1, 2304, 1, 256),
+                             (1, 2304, 1, 256)))
+    do, _ = smoke.unit_scaled(torch.from_numpy(
+        rng.normal(size=(1, 2304, 2, 256)).astype(np.float32)))
+    do = do.bfloat16()
+    o, lse = _formula_inputs(q, k, v, do, True, 2048)
+    dense = smoke.dense_flash_bwd(torch, q, k, v, o, lse, do, True, 2048)
+    splits = kernel.head_splits(
+        tuple(kernel.band_tiles(2304, 2304, True, 2048, 64, 32)), 1, 2, 132)
+    assert splits == 2
+    shares = {}
+    for split in (True, False):
+        got = [t.bfloat16() for t in _emulate_bwd_kernel(
+            q, k, v, o, lse, do, True, 2048, split=split, splits=splits)]
+        shares[split] = {name: r["share"] for name, r in smoke.shares(
+            torch, got, dense, smoke.FORMULA_BWD_REL,
+            smoke.FLASH_GRAD_TOL).items()}
+    assert all(0 < x <= 1.0 for x in shares[True].values()), shares
+    assert all(x > 1.0 for x in shares[False].values()), shares
+
+
+@pytest.mark.parametrize("s,causal,window,batch_kv,group,slots,want", [
+    # recurrentgemma-2b: MQA 10/1, window 2 048, one block an SM; the
+    # band's last key blocks are short, so 5 splits balance where 2 leave
+    # the SMs of the short blocks idle
+    (4096, True, 2048, 1, 10, 132, 5),
+    (4096, True, 2048, 1, 1, 132, 1),      # no group to split
+    (4096, True, None, 5, 3, 264, 3),      # SmolLM 15/5, two blocks an SM
+    (4096, True, None, 128, 1, 132, 1),    # DeepSeek-V2's MLA: many blocks
+    (2304, True, 2048, 1, 2, 132, 2),
+    # a full mask: every key block alike, so whole waves decide
+    (4096, False, None, 1, 10, 132, 2),
+    # lm_archs' training shapes, B 1 x S 2 048, causal, where chip_smoke.py
+    # times every divisor beside the pick: Granite-20B's MQA 48/1 and
+    # Pixtral-12B's GQA 32/8 (D 128, one block an SM), SmolLM-360M's 15/5
+    # (D 64, two blocks an SM)
+    (2048, True, None, 1, 48, 132, 48),
+    (2048, True, None, 8, 4, 132, 4),
+    (2048, True, None, 5, 3, 264, 3),
+])
+def test_head_splits_picks_the_earliest_finish(s, causal, window, batch_kv,
+                                               group, slots, want):
+    tiles = tuple(kernel.band_tiles(s, s, causal, window, 64, 32))
+    assert kernel.head_splits(tiles, batch_kv, group, slots) == want
+
+
+def test_band_tiles_follow_the_mask():
+    assert kernel.band_tiles(4096, 4096, True, 2048, 64, 32)[:2] == [66, 66]
+    assert kernel.band_tiles(4096, 4096, True, 2048, 64, 32)[-1] == 2
+    assert kernel.band_tiles(100, 100, False, None, 64, 32) == [4, 4]
+    assert kernel.band_tiles(100, 100, True, None, 64, 32) == [4, 2]
+
+
+def test_strides_of_unit_dims_are_zero():
+    """A batch of one keeps whatever batch stride PyTorch left it (the
+    gradient reaching the backward at the model's B 1 had batch stride 1,
+    which ``contiguous()`` keeps); the kernels get 0 there, so their
+    16-byte test sees only the strides they use."""
+    do = torch.zeros(4096 * 2560).as_strided((1, 4096, 10, 256),
+                                             (1, 2560, 256, 1))
+    assert do.is_contiguous() and do.contiguous().stride()[0] == 1
+    assert kernel._strides(do) == [0, 2560, 256]
+    k = torch.zeros(2, 8, 1, 16)
+    assert kernel._strides(k) == [128, 16, 0]
+
+
 def test_bwd_kernel_refuses_cpu_tensors():
     q = torch.ones(1, 8, 2, 16)
     lse = torch.zeros(1, 2, 8)
