@@ -86,6 +86,18 @@ Phases, one line each, then a kernels line and a last line with the device:
                 each but burst 2, which launched nothing, and no
                 plain-version call; each path's count goes into the kernels
                 line as ``<path>_launches``.
+ 7b. analysis   the port's invariant checks (``repro_torch.analysis``):
+                the AST lint (R1-R5) over ``src/repro_torch``, 0 violations,
+                its waivers listed; the runtime contracts (C1-C4) over the
+                five FCT program families at P 1 and 8 under both policies
+                on the card, 0 failures, inside ``counted`` (both integer
+                fct_count instantiations launched, no plain-version call;
+                ``analysis_launches`` in the kernels line); then
+                ``examples/quickstart_torch.py`` and
+                ``examples/fct_query_expansion_torch.py`` as subprocesses
+                with no ``--device`` (so on the card), each one's top terms
+                equal to ``topk_terms(fct_star(...))`` on
+                ``data/demo.py``'s database.
   8. pipeline   the warm full query 8 times through ``FCTSession.submit``
                 on phase 4's session: FIFO, every answer equal to the
                 oracle; the burst's wall time against 8 sequential
@@ -254,7 +266,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import importlib.util
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -1053,6 +1067,67 @@ def run_fct_serve_smoke(torch) -> str:
     return (f"python -m repro_torch.launch.fct_serve --smoke --device cuda: "
             + " / ".join(ln for ln in lines if ln.startswith("#")
                          or ln == "SMOKE OK"))
+
+
+def example_answer(script: str):
+    """Runs ``examples/<script>`` on the card as a user would (no
+    ``--device``) and returns (its top-k ids, freqs, device, the oracle's
+    ids and freqs on ``data/demo.py``'s database for the example's query)."""
+    from repro_torch.core.star import fct_star, topk_terms
+    from repro_torch.data import demo
+    path = ROOT / "examples" / script
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)       # its constants; main() not run
+    proc = subprocess.run(
+        [sys.executable, str(path)], cwd=ROOT, capture_output=True,
+        text=True, timeout=600, env={**os.environ, "PYTHONPATH": str(SRC)})
+    check(proc.returncode == 0,
+          f"{script} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    m = re.search(r"^term ids \[([\d, ]*)\] freqs \[([\d, ]*)\] on (\S+)$",
+                  proc.stdout, re.M)
+    check(m is not None, f"{script} printed no term ids: {proc.stdout}")
+    ids, freqs = ([int(x) for x in g.split(",") if x.strip()]
+                  for g in m.groups()[:2])
+    kws = [int(demo.TOK.encode(kw, 1)[0]) for kw in example.QUERY]
+    want_ids, want_freqs = topk_terms(
+        fct_star(demo.build_db(), kws, example.R_MAX), kws, example.TOP_K,
+        demo.TOK.stop_mask())
+    return ids, freqs, m.group(3), want_ids.tolist(), want_freqs.tolist()
+
+
+def run_analysis(dev):
+    """The port's invariant checks on the card: the lint over
+    ``src/repro_torch`` (0 violations), the runtime contracts at P 1 and 8
+    under both policies (0 failures, inside ``counted``: both integer
+    fct_count instantiations launched, no plain-version call), then both
+    FCT examples as subprocesses, each answer equal to ``fct_star`` +
+    ``topk_terms`` on the demo database.  Returns (the contracts' launches,
+    the phase's line)."""
+    from repro_torch.analysis import lint_paths
+    from repro_torch.analysis.contracts import check_all_contracts
+    report = lint_paths(SRC / "repro_torch", repo_root=ROOT)
+    check(report.ok, "lint: " + "; ".join(v.render()
+                                          for v in report.violations))
+    (failures, checked), launches = counted(
+        "analysis contracts", lambda: check_all_contracts(device=dev),
+        kernels=("fct_count_exact_int32", "fct_count_exact_int64"))
+    check(not failures, f"contracts: {failures}")
+    answers = []
+    for script in ("quickstart_torch.py", "fct_query_expansion_torch.py"):
+        ids, freqs, device, want_ids, want_freqs = example_answer(script)
+        check(device.startswith("cuda"), f"{script} ran on {device}")
+        check((ids, freqs) == (want_ids, want_freqs),
+              f"{script}: {ids} {freqs}, fct_star: {want_ids} {want_freqs}")
+        answers.append(f"{script} on {device}: ids {ids} freqs {freqs}")
+    return launches, (
+        f"lint: {report.files_checked} files of src/repro_torch, 0 "
+        f"violations, {len(report.waived)} waived "
+        f"({', '.join(f'{w.path}:{w.line} {w.rule}' for w in report.waived)}"
+        f"); contracts: {checked} programs at P 1 and 8 under int32 and "
+        f"int64, 0 failures, fct_count launched {launches} and no "
+        f"plain-version call; examples equal to fct_star/topk_terms: "
+        + "; ".join(answers))
 
 
 def run_pipeline(torch, np, session, full, oracle):
@@ -3240,6 +3315,10 @@ def main() -> int:
                        "uploaded only its chunk; fct_count int32 launched "
                        "and no plain-version call in each path, counted "
                        f"from 0 around it: {path_launches}; {serve_smoke}")
+
+    t0 = time.perf_counter()
+    path_launches["analysis"], note = run_analysis(dev)
+    phase("analysis", t0, note)
 
     t0 = time.perf_counter()
     path_launches["pipeline_submit"] = run_pipeline(

@@ -48,7 +48,7 @@ from repro_torch.data.schema import StarSchema
 from repro_torch.distributed.checkpoint import (restore_checkpoint,
                                                 save_checkpoint)
 from repro_torch.kernels.fct_count.ops import weighted_histogram
-from repro_torch.launch.mesh import VirtualMesh
+from repro_torch.launch.mesh import VirtualMesh, all_to_all, psum
 from repro_torch.obs import span as obs_span
 from repro_torch.runtime.batch import (PlanSignature, pad_plan_arrays,
                                        plan_signature)
@@ -70,6 +70,7 @@ def _scatter_add_drop(target: torch.Tensor, dim: int, idx: torch.Tensor,
     size = target.shape[dim]
     idx = torch.where(idx < 0, idx + size, idx)
     ok = (idx >= 0) & (idx < size)
+    # fct-lint: waive[R2] -- every caller allocates target with an explicit dtype (num, contrib in _mr1_volumes)
     target.scatter_add_(dim, torch.where(ok, idx, 0),
                         torch.where(ok, src, torch.zeros_like(src)))
 
@@ -89,7 +90,7 @@ def _route(texts: Sequence[torch.Tensor], keys: Sequence[torch.Tensor],
     N, P, _, C = send.shape
     S, L = texts[0].shape[1:]
     dev = send.device
-    send_t = send.transpose(1, 2).long()       # [N, dst, src, C]: all_to_all
+    send_t = all_to_all(send).long()           # [N, dst, src, C]
     mask = (send_t >= 0).reshape(N, P, P * C)
     # a valid plan names rows in [0, S) only; -1 pads are masked, and the
     # clamp keeps every gather in bounds
@@ -203,7 +204,7 @@ def run_cn_plan(plan: CNPlan, mesh: VirtualMesh,
     hist = _device_fct_local(
         fact, dims, domains=tuple(plan.key_domains[i] for i in plan.included),
         vocab=plan.vocab_size, accum=accum)
-    return hist[0].to(accum.dtype).cpu().numpy().astype(np.int64)
+    return psum(hist[0].to(accum.dtype)).cpu().numpy().astype(np.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -241,7 +242,7 @@ def _device_job2(vol_arrays: Dict, *, vocab: int,
     for d in vol_arrays["dims"]:
         hist = hist + weighted_histogram(d["text"], d["vol"].to(hist.dtype),
                                          vocab)
-    return hist.to(accum.dtype)
+    return psum(hist.to(accum.dtype))
 
 
 def _build_job1(sig: PlanSignature, mesh: VirtualMesh):

@@ -6,13 +6,26 @@ axes of a routed buffer, a psum is a sum over the worker axis, and a
 psum_scatter is that sum over a vocab padded to a multiple of P.  Routing,
 shuffle accounting and results are those of P real workers; only the
 hardware parallelism differs.
+
+Every movement across the virtual workers goes through one of the named
+functions below (:func:`all_to_all`, :func:`psum`, :func:`psum_scatter`,
+:func:`all_gather`), so a :func:`collective_census` can count them, as the
+reference's contract checker counts the collectives of a traced program.
+Outside a census they cost one thread-local lookup.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Optional, Union
+import threading
+from typing import Dict, Iterator, Optional, Tuple, Union
 
 import torch
+
+#: the collectives a census counts
+COLLECTIVES = ("all_to_all", "psum", "psum_scatter", "all_gather")
+
+_CENSUS = threading.local()
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -52,3 +65,67 @@ def make_worker_mesh(n: int = 1, device=None) -> VirtualMesh:
     """P = ``n`` workers on ``device`` (``None`` = CUDA, see
     :func:`resolve_device`)."""
     return VirtualMesh(int(n), resolve_device(device))
+
+
+def vocab_padded(vocab: int, n_devices: int) -> int:
+    """Vocab rounded up so each worker owns an equal ``vocab/P`` bin shard
+    under reduce-scatter aggregation.  The pad bins are structurally zero
+    (the histogram never writes past ``vocab``), so slicing them off on the
+    host is exact."""
+    return -(-vocab // n_devices) * n_devices
+
+
+@contextlib.contextmanager
+def collective_census() -> Iterator[Dict[str, int]]:
+    """Counts the collectives this thread runs inside the block, by name
+    (:data:`COLLECTIVES`); yields the live counts."""
+    counts = dict.fromkeys(COLLECTIVES, 0)
+    outer = getattr(_CENSUS, "counts", None)
+    _CENSUS.counts = counts
+    try:
+        yield counts
+    finally:
+        _CENSUS.counts = outer
+
+
+def _tally(name: str) -> None:
+    counts = getattr(_CENSUS, "counts", None)
+    if counts is not None:
+        counts[name] += 1
+
+
+def all_to_all(send: torch.Tensor) -> torch.Tensor:
+    """The routing shuffle: a ``[N, P(src), P(dst), ...]`` send table seen
+    from the destinations, ``[N, P(dst), P(src), ...]``.  One swap routes a
+    relation's text, keys and mask together: each destination gathers the
+    rows its sources name (the reference moves the three buffers by three
+    ``all_to_all``\\ s)."""
+    _tally("all_to_all")
+    return send.transpose(1, 2)
+
+
+def psum(hist: torch.Tensor) -> torch.Tensor:
+    """The sum over workers in the psum layout (the whole vocab on every
+    worker).  MR² counts every worker's rows in one histogram, the worker
+    axis folded into the row axis, so the histogram it is given is that sum
+    already (integer addition is associative: the same bits)."""
+    _tally("psum")
+    return hist
+
+
+def psum_scatter(hist: torch.Tensor, n_workers: int) -> torch.Tensor:
+    """The sum over workers in the reduce-scatter layout: as :func:`psum`,
+    with the last (vocab) axis zero-padded to a multiple of ``n_workers``,
+    so worker w owns bins ``[w*V/P, (w+1)*V/P)``."""
+    _tally("psum_scatter")
+    vocab = hist.shape[-1]
+    pad = vocab_padded(vocab, n_workers) - vocab
+    return torch.nn.functional.pad(hist, (0, pad)) if pad else hist
+
+
+def all_gather(*shards: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Tiled all_gather over the worker axis: each ``[P, k]`` tensor (worker
+    w's k values in row w) as ``[P * k]``, worker-major.  One call moves
+    every tensor given (the reference gathers each separately)."""
+    _tally("all_gather")
+    return tuple(s.reshape(-1) for s in shards)

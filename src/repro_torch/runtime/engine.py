@@ -54,7 +54,8 @@ import torch
 from repro_torch.core.accum import AccumPolicy
 from repro_torch.core.fct import _device_fct_local
 from repro_torch.core.plan import CNPlan
-from repro_torch.launch.mesh import VirtualMesh
+from repro_torch.launch.mesh import (VirtualMesh, all_gather, psum,
+                                     psum_scatter, vocab_padded)
 from repro_torch.obs import default_registry
 from repro_torch.obs import span as obs_span
 from repro_torch.runtime.batch import (BUCKET_MIN, PlanSignature, RelationSig,
@@ -75,21 +76,15 @@ KW_BUCKET_MIN = 8  # floor for padding the keyword-exclusion id vector
 _TOPK_REL = RelationSig(rows=BUCKET_MIN, cap=BUCKET_MIN, text_len=BUCKET_MIN)
 
 
-def vocab_padded(vocab: int, n_devices: int) -> int:
-    """Vocab rounded up so each worker owns an equal ``vocab/P`` bin shard
-    under reduce-scatter aggregation.  The pad bins are structurally zero
-    (the histogram never writes past ``vocab``), so slicing them off on the
-    host is exact."""
-    return -(-vocab // n_devices) * n_devices
-
-
 def _vmapped_cns(fact, dims, sig: PlanSignature, reduce_cns: bool,
                  reduce_scatter: bool) -> torch.Tensor:
     """Body shared by every histogram family: MR¹+MR² over the leading CN
     axis, then the cross-worker aggregation.
 
     The histograms come back already summed over the virtual mesh's worker
-    axis (core.fct folds the psum into the histogram's row axis).  The
+    axis (core.fct folds the psum into the histogram's row axis), so the
+    aggregation is one named collective, :func:`psum` or
+    :func:`psum_scatter` (``launch/mesh.py``).  The
     cross-CN group sum accumulates in the signature's AccumPolicy dtype —
     explicitly, so individually-fine int32 CNs summing past 2^31 wrap (and
     are caught on collection) under INT32_CHECKED and stay exact under
@@ -104,10 +99,9 @@ def _vmapped_cns(fact, dims, sig: PlanSignature, reduce_cns: bool,
                               accum=sig.accum)                 # [N, vocab]
     acc = sig.accum.dtype
     out = hists.sum(dim=0, dtype=acc) if reduce_cns else hists.to(acc)
-    pad = vocab_padded(sig.vocab, sig.n_devices) - sig.vocab
-    if reduce_scatter and pad:
-        out = torch.nn.functional.pad(out, (0, pad))
-    return out
+    if reduce_scatter:
+        return psum_scatter(out, sig.n_devices)
+    return psum(out)
 
 
 def _build_batched_fn(sig: PlanSignature, mesh: VirtualMesh,
@@ -257,8 +251,9 @@ def _build_topk_fn(sig: PlanSignature, mesh: VirtualMesh,
         cand = ids.view(n_shards, shard).gather(1, local)
         if n_shards == 1:
             return v[0, :k_eff], cand[0, :k_eff], wrapped
-        fv, pos = _top(v.reshape(-1), k_eff)   # worker-major candidates
-        return fv, cand.reshape(-1)[pos], wrapped
+        all_v, all_ids = all_gather(v, cand)   # worker-major candidates
+        fv, pos = _top(all_v, k_eff)
+        return fv, all_ids[pos], wrapped
 
     return program
 
@@ -465,6 +460,7 @@ class FCTEngine:
         multiple of P under reduce-scatter on multi-worker meshes, as is
         otherwise — so the caller can add it to (or feed it beside)
         device-resident histograms.  Counted as shipped bytes."""
+        # fct-lint: waive[R4] -- vec is a host numpy vector: nothing is read from the device
         arr = np.asarray(vec).astype(dtype, copy=True)
         if self._reduce_scatters(mesh.size):
             vp = vocab_padded(len(arr), mesh.size)
@@ -476,8 +472,8 @@ class FCTEngine:
     @staticmethod
     def _plan_rows(plans: Sequence[CNPlan], idxs: Sequence[int]) -> int:
         """Total routed fact rows of a set of plans (pruning ledger)."""
-        return int(sum(int(plans[i].device_rows.sum()) for i in idxs
-                       if plans[i].device_rows is not None))
+        return int(sum(int(plans[i].device_rows.sum(dtype=np.int64))
+                       for i in idxs if plans[i].device_rows is not None))
 
     def dispatch_topk(self, plans: Sequence[CNPlan], mesh: VirtualMesh,
                       k: int, *, keywords: Sequence[int] = (), excl=None,

@@ -23,7 +23,9 @@ the CPU's answer: ``torch.topk`` promises no order among equal values, the
 port's stable sort does), the store's on-device ``_assemble`` bit-equal to
 a direct upload, ``submit`` from three threads with the launch and path
 counts exact, and a gateway burst that coalesces and then hits its cache,
-every answer equal to ``fct_star``.
+every answer equal to ``fct_star``.  The runtime contract checker
+(``repro_torch.analysis.contracts``) over every FCT program family at P = 1
+and 8 under both policies, through the kernel.
 
 The training path on the card: the backward kernels (flash_attention_bwd,
 lru_scan_bwd) against their plain versions' autograd — flash within 1e-4 of
@@ -901,3 +903,17 @@ def test_reduced_model_train_step_through_kernels(cuda_device):
                                               in batch.items()})
     assert int(state["count"]) == 1
     assert bool(torch.isfinite(metrics["grad_norm"]))
+
+
+def test_contracts_on_card(cuda_device):
+    """The runtime contract checker on the card: every family at P 1 and
+    8 under both policies, its histograms through the fct_count kernel and
+    never the plain version."""
+    from repro_torch.analysis.contracts import check_all_contracts
+    kernel.LIB.reset_launches()
+    ops.reset_path_counts()
+    failures, checked = check_all_contracts(device=cuda_device)
+    assert failures == [] and checked == 40
+    assert kernel.LAUNCHES["fct_count_exact_int32"] > 0
+    assert kernel.LAUNCHES["fct_count_exact_int64"] > 0
+    assert ops.PATH_COUNTS["ref"] == 0

@@ -1,7 +1,8 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, every module imports on a
-machine without CUDA, Triton or nvcc, and the entry points refuse to carry on
-without a card unless the caller asks for the CPU."""
+"""The port stands alone: no module of ``src/repro_torch``, no
+``examples/*_torch.py`` and not ``chip_smoke.py`` imports JAX or the JAX
+package, every module imports on a machine without CUDA, Triton or nvcc,
+and the entry points refuse to carry on without a card unless the caller
+asks for the CPU."""
 import ast
 import importlib
 import os
@@ -27,7 +28,9 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 def _sources():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     assert len(files) > 20
-    return files + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert len(examples) >= 3
+    return files + examples + [ROOT / "chip_smoke.py"]
 
 
 def _imported_roots(path: Path):
