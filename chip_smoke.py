@@ -257,6 +257,25 @@ Phases, one line each, then a kernels line and a last line with the device:
                 its dense layer and takes the gradient of its dense layer
                 and one MoE layer besides (not one MoE layer fits beside
                 AdamW's state).
+ 18. dryrun     ``repro_torch.launch.dryrun``'s meta records of all ten
+                architectures x four shapes (each ok, or a skip with the
+                reference's reason; none an error; no collective on one
+                card; written to ``results/dryrun_torch/<GPU>/``), then two
+                cells on the card, each run inside ``counted`` (a warm-up
+                call under ``FlopCounterMode`` and a timed call) and held to
+                its meta record: the argument bytes of the same tensors
+                equal, the matrix products' FLOPs equal with attention and
+                the scan taken out on both sides (the kernels launch
+                through ctypes, which ``FlopCounterMode`` does not see), the
+                meta peak against ``max_memory_allocated`` as a ratio, and
+                the achieved share of 989e12 FLOP/s beside the predicted
+                roofline fraction.  M1: recurrentgemma-2b decode_32k at its
+                full shape (B 128, one ``serve_step`` at position 32 767),
+                no kernel.  M2: prefill_32k cut to B 1 x S 8 192 (as phase
+                10), 8 flash_attention and 18 lru_scan launches a call, no
+                plain-version call (``dryrun_launches`` in the kernels
+                line: both calls).  Then ``examples/serve_lm_torch.py`` as
+                a subprocess with no ``--device``, to its line on cuda:0.
 
 Float32 matrix products run in full float32 (TF32 off).  Exits non-zero,
 printing no result, when there is no CUDA device, when the package is
@@ -279,10 +298,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and float32
-# operations/s outside the tensor cores, used for scalar adds
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_SCALAR_OPS_PER_S = 67e12
+# H100 SXM published peaks (NVIDIA data sheet), set by main() from
+# repro_torch/launch/roofline.py: HBM3 bytes/s, and float32 operations/s
+# outside the tensor cores, used for scalar adds
+PEAK_BYTES_PER_S = PEAK_SCALAR_OPS_PER_S = None
 
 SF1_ROWS = {"fact_rows": 6_001_215, "part_rows": 200_000,
             "supp_rows": 10_000, "order_rows": 1_500_000}
@@ -1407,8 +1426,8 @@ CAPTURED_BWD_REL = 2.0 ** -7
 CAPTURED_BWD_ABS_OF_MAX = 2.0 ** -7
 BAND_CUT = 32
 # H100 SXM peak operations/s by input type: dense bf16 tensor cores, and
-# float32 outside the tensor cores
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": PEAK_SCALAR_OPS_PER_S}
+# float32 outside the tensor cores (set by main() from launch/roofline.py)
+PEAK_OPS_PER_S = {}
 LM_KERNELS = {  # name -> (source, TPU kernel it replaces)
     "flash_attention": (
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
@@ -3207,6 +3226,119 @@ def lm_timing(torch, captured, case_errs):
     return report
 
 
+# --- phase 18: the dry-run and roofline layer ----------------------------------
+
+DRYRUN_ARCHS = ("recurrentgemma-2b", "pixtral-12b", "smollm-360m", "gemma-7b",
+                "granite-20b", "olmo-1b", "hubert-xlarge", "deepseek-v2-236b",
+                "deepseek-moe-16b", "rwkv6-1.6b")
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+# the measured cells: M1 at its full shape; M2 cut as lm_prefill is (the
+# float32 logits of prefill_32k's B 32 x S 32 768 alone take 1.07 TB)
+DRYRUN_MEASURED = (("M1", "decode_32k", None, None, {}),
+                   ("M2", "prefill_32k", PREFILL_B, PREFILL_S,
+                    {"flash_attention": 8, "lru_scan": 18}))
+
+
+def run_dryrun(torch, args, dev):
+    """Phase 18: the meta records of every (architecture x shape) cell,
+    then M1 and M2 on the card held to their meta records, then
+    ``examples/serve_lm_torch.py`` as a user runs it.  Returns (the phase's
+    note, M2's launches counted from 0 around its run)."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch import dryrun, sweep
+    out_dir = ROOT / "results" / "dryrun_torch" / sweep.device_dir_name("cuda")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    status, slowest = {}, (0.0, "")
+    t0 = time.perf_counter()
+    with open(out_dir / "smoke_all.jsonl", "w") as f:
+        for arch in DRYRUN_ARCHS:
+            for shape in DRYRUN_SHAPES:
+                rec = dryrun.run_cell(arch, shape, "meta", verbose=False)
+                f.write(json.dumps(rec) + "\n")
+                check(rec["status"] in ("ok", "skip"),
+                      f"dryrun {arch} {shape}: {rec['status']} "
+                      f"{rec.get('reason')}")
+                status[rec["status"]] = status.get(rec["status"], 0) + 1
+                if rec["status"] == "skip":
+                    print(f"[dryrun] {arch} {shape} skip: {rec['reason']}",
+                          flush=True)
+                    continue
+                rf = rec["roofline"]
+                slowest = max(slowest, (rec["record_s"], f"{arch} {shape}"))
+                print(f"[dryrun] {arch} {shape} flops {rf['flops']:.4e} "
+                      f"bytes {rf['hbm_bytes']:.4e} peak "
+                      f"{rec['counts']['peak_bytes']:.4e} args "
+                      f"{rec['arg_bytes']:.4e} {rf['bottleneck']} frac "
+                      f"{rec['roofline_fraction']:.4f} fits "
+                      f"{rec['fits_one_card']} collectives "
+                      f"{sum(rec['counts']['collectives'].values())} "
+                      f"{rec['record_s']:.2f}s", flush=True)
+                check(sum(rec["counts"]["collectives"].values()) == 0,
+                      f"dryrun {arch} {shape}: collectives on one card")
+    meta_s = time.perf_counter() - t0
+    notes, m2_launches = [], {}
+    with open(out_dir / "smoke_measured.jsonl", "w") as f:
+        for label, shape, b, s, per_call in DRYRUN_MEASURED:
+            torch.cuda.empty_cache()
+            # the meta record first (its plain versions run on meta), then
+            # the card's run alone inside counted
+            rec = dryrun.run_cell(LM_ARCH, shape, "meta", batch=b, seq=s,
+                                  verbose=False)
+            check(rec["status"] == "ok" and rec["fits_one_card"],
+                  f"dryrun {label}: {rec['status']} {rec.get('fits_reason')}")
+            cut, _ = dryrun.cell_shape(shape, b, s)
+            m, launches = counted(
+                f"dryrun {label}",
+                lambda: dryrun.measure(get_arch(LM_ARCH), cut, rec, dev,
+                                       args.seed),
+                kernels=tuple(per_call))
+            rec["measured"] = m
+            rec["device"] = m["device"]
+            f.write(json.dumps(rec) + "\n")
+            check(m["arg_bytes_equal"], f"dryrun {label}: argument bytes "
+                                        f"{m['arg_bytes']} on the card vs "
+                                        f"{rec['arg_bytes']} on meta")
+            check(m["flops_equal"], f"dryrun {label}: FLOPs {m['flops']} on "
+                                    f"the card vs {m['meta_flops']} on meta")
+            check(m["launches"] == per_call,
+                  f"dryrun {label}: launches a call {m['launches']}")
+            check(launches == {k: 2 * v for k, v in per_call.items()},
+                  f"dryrun {label}: launches {launches} over its two calls")
+            if label == "M2":
+                m2_launches = launches
+            print(f"[dryrun_measured] {label} {LM_ARCH} {shape} "
+                  f"{', '.join(rec['reduced']) or 'full shape'}: wall "
+                  f"{m['wall_ms']:.3f} ms, max_memory_allocated "
+                  f"{m['max_memory_allocated']} above "
+                  f"{m['allocated_before']} held before, meta args+peak / card "
+                  f"{m['meta_held_over_card']:.4f}, achieved "
+                  f"{m['achieved_fraction']:.4f} vs predicted "
+                  f"{m['predicted_fraction']:.4f}, arg bytes "
+                  f"{m['arg_bytes']} equal, FLOPs {m['flops']:.6e} equal "
+                  f"({m['flops_compared']}), launches a call "
+                  f"{m['launches']}", flush=True)
+            notes.append(f"{label} wall {m['wall_ms']:.3f} ms, achieved "
+                         f"{m['achieved_fraction']:.4f} vs predicted "
+                         f"{m['predicted_fraction']:.4f}, meta/card memory "
+                         f"{m['meta_held_over_card']:.4f}")
+            del rec
+    torch.cuda.empty_cache()
+    path = ROOT / "examples" / "serve_lm_torch.py"
+    proc = subprocess.run(
+        [sys.executable, str(path)], cwd=ROOT, capture_output=True,
+        text=True, timeout=600, env={**os.environ, "PYTHONPATH": str(SRC)})
+    check(proc.returncode == 0,
+          f"serve_lm_torch exited {proc.returncode}: {proc.stderr[-2000:]}")
+    last = proc.stdout.strip().splitlines()[-1]
+    check(last.endswith("end to end on cuda:0"),
+          f"serve_lm_torch did not serve on the card: {last}")
+    return (f"{status.get('ok', 0)} ok and {status.get('skip', 0)} skip "
+            f"meta records in {meta_s:.3f} s (slowest {slowest[1]} "
+            f"{slowest[0]:.2f} s), no collective in any; "
+            + "; ".join(notes) + f"; examples/serve_lm_torch.py: {last}",
+            m2_launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=float, default=1.0,
@@ -3225,6 +3357,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    global PEAK_BYTES_PER_S, PEAK_SCALAR_OPS_PER_S
+    from repro_torch.launch import roofline
+    PEAK_BYTES_PER_S = roofline.HBM_BYTES_PER_S
+    PEAK_SCALAR_OPS_PER_S = roofline.PEAK_F32_FLOPS
+    PEAK_OPS_PER_S.update(bfloat16=roofline.PEAK_BF16_FLOPS,
+                          float32=roofline.PEAK_F32_FLOPS)
     from repro_torch.kernels import _build
     from repro_torch.kernels.fct_count import kernel, ops
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
@@ -3430,6 +3568,12 @@ def main() -> int:
                            "backward the same way at HuBERT's (80, 80) and "
                            "DeepSeek-V2's (192, 128) first-layer prefill "
                            "inputs")
+    t0 = time.perf_counter()
+    note, dryrun_launches = run_dryrun(torch, args, dev)
+    for entry in report:
+        if entry["name"] in dryrun_launches:
+            entry["dryrun_launches"] = dryrun_launches[entry["name"]]
+    phase("dryrun", t0, note)
     phase("total", t_start, "wall time of the whole smoke, build included")
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -32,6 +32,11 @@ The two jobs are also separable (:func:`run_cn_plan_two_jobs`): job 1
 returns the vol-array artifact that job 2 consumes, so the MR¹→MR² boundary
 can be checkpointed — the paper's "two MapReduce jobs" as two programs.  The
 fused path is the default.
+
+The reference's ``make_fct_program`` and ``lower_cn_plan`` have no
+counterpart: the first builds a jitted program that :func:`run_cn_plan`
+calls (here it runs the device code directly, eagerly), the second lowers
+it to HLO text, and nothing else in the reference calls either.
 """
 from __future__ import annotations
 

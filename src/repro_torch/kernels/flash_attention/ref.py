@@ -6,7 +6,9 @@ Never materializes the [Sq, Skv] score matrix: an outer loop over query
 blocks, an inner loop over kv blocks with running (max, denom, acc).
 Supports causal / local-window / full (encoder) masks and GQA; like the
 reference it visits every kv block (the kernel skips those outside the
-band).  ``block_q``/``block_k`` shape only this version.
+band).  ``block_q``/``block_k`` shape only this version.  On meta tensors
+(the dry-run) the block-pair loops are trip-counted
+(``launch/op_analysis.py``).
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.launch.op_analysis import trips
 
 NEG_INF = -2.0e38
 
@@ -50,7 +54,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     vb = v.float().reshape(b, nk, bk, hkv, dv)
     out = torch.empty((b, nq, bq, hkv, g, dv), dtype=torch.float32,
                       device=dev)
-    for qi in range(nq):
+    for qi in trips(nq, q, "flash_attention"):
         qblk = qb[:, qi]
         m = torch.full((b, bq, hkv, g), NEG_INF, dtype=torch.float32,
                        device=dev)
@@ -58,7 +62,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
         acc = torch.zeros((b, bq, hkv, g, dv), dtype=torch.float32,
                           device=dev)
         qpos = qi * bq + torch.arange(bq, device=dev)
-        for ki in range(nk):
+        for ki in trips(nk, q, "flash_attention"):
             s = torch.einsum("bqhgd,bkhd->bqhgk", qblk, kb[:, ki])
             kpos = ki * bk + torch.arange(bk, device=dev)
             valid = (kpos < skv)[None, :]          # mask key padding

@@ -9,11 +9,14 @@ Differentiable: autograd through the loop is the plain version of the
 kernel's backward (the steps are stacked, not written into a buffer, so the
 backward is one pass over S).
 The reference's plain version is an associative scan; the two agree to
-float32 rounding (``tests/test_torch_lru_scan.py``).
+float32 rounding (``tests/test_torch_lru_scan.py``).  On meta tensors (the
+dry-run) the step loop is trip-counted (``launch/op_analysis.py``).
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.launch.op_analysis import stack_trips, trips
 
 
 def lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -26,7 +29,7 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return torch.empty_like(a)
     h = torch.zeros_like(af[:, 0])
     out = []
-    for t in range(a.shape[1]):
+    for t in trips(a.shape[1], a, "lru_scan"):
         h = torch.addcmul(bf[:, t], af[:, t], h)
         out.append(h)
-    return torch.stack(out, dim=1).to(a.dtype)
+    return stack_trips(out, a.shape[1], dim=1).to(a.dtype)

@@ -37,6 +37,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig, Block
 from repro_torch.distributed import perf_options
+from repro_torch.launch import op_analysis
 from repro_torch.launch.mesh import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
@@ -157,10 +158,13 @@ def init_params(cfg: ArchConfig, device=None,
     device seeded with ``seed``).  The distributions are the reference's;
     the numbers are not — torch and JAX generators differ.  To compute the
     reference's function, convert its parameters
-    (``models.convert.params_from_reference``)."""
+    (``models.convert.params_from_reference``).  ``device="meta"`` builds
+    the shapes alone, allocating nothing (the dry-run's records)."""
     dev = resolve_device(device)
     if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(seed)
+        # the meta device has no generator of its own (and draws nothing)
+        gen_dev = "cpu" if dev.type == "meta" else dev
+        generator = torch.Generator(device=gen_dev).manual_seed(seed)
     return LM(cfg, generator, dev)
 
 
@@ -240,7 +244,9 @@ def forward(params: LM, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
     The layers of each repetition of ``decompose(cfg.blocks())``'s unit run
     as one checkpointed call under ``cfg.remat``, as the reference's scan
     body does; the prefix and suffix layers run plain, as in the
-    reference.  Checkpointing only acts where autograd records a graph."""
+    reference.  Checkpointing only acts where autograd records a graph.
+    On meta tensors (the dry-run) the repetitions are trip-counted, as the
+    reference's scan is (``launch/op_analysis.py``)."""
     layout = decompose(cfg.blocks())
     blocks = list(zip(params.blocks, cfg.blocks()))
     n_pre, n_unit = len(layout.prefix), len(layout.unit)
@@ -255,8 +261,11 @@ def forward(params: LM, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x, aux = run(x, aux, *blocks[:n_pre])
     unit = _remat(run, cfg) if torch.is_grad_enabled() else run
-    for r in range(layout.reps):
-        x, aux = unit(x, aux,
+    for r in op_analysis.trips(layout.reps, x, "layers"):
+        step = unit
+        if x.is_meta and torch.is_grad_enabled():  # recompute as this trip
+            step = _remat(op_analysis.replay_trips(run), cfg)
+        x, aux = step(x, aux,
                       *blocks[n_pre + r * n_unit:n_pre + (r + 1) * n_unit])
     x, aux = run(x, aux, *blocks[n_pre + n_body:])
     x = apply_norm(x, params.out_norm, cfg)

@@ -14,7 +14,9 @@ gates.
 Two calls on the card give the same bits: every kept slot is written once
 (the drop slot alone collects several writes, and is discarded), each
 token sums its k contributions in a fixed order, and the auxiliary loss's
-expert counts come from an integer ``bincount``, never float atomics.
+expert counts are integer sums (``index_add_`` of ones into int64 bins,
+exact in any order; ``bincount`` would do, but it has no meta kernel, and
+the dry-run walks the model on the meta device), never float atomics.
 
 ``perf_options("moe_shardmap")`` inside ``perf_options.virtual_grid(data,
 model)`` takes the reference's expert-parallel path over a virtual
@@ -78,7 +80,9 @@ def load_stats(probs, gate_idx, e: int):
     the share of the T*k assignments each expert received (counted as
     integers)."""
     t, k = gate_idx.shape
-    counts = torch.bincount(gate_idx.reshape(-1), minlength=e)
+    idx = gate_idx.reshape(-1)
+    counts = torch.zeros(e, dtype=torch.int64, device=idx.device).index_add_(
+        0, idx, torch.ones_like(idx))
     return probs.mean(dim=0), counts.float() * (1.0 / (t * k))
 
 

@@ -9,8 +9,9 @@ Token-shift (ddlerp) mixes x_t with x_{t-1} before every projection.
 Train/prefill runs the exact recurrence step by step over time in float32
 (``_wkv_scan``, the reference's ``lax.scan``); ``perf_options
 ("rwkv_chunked")`` takes the chunk-parallel form (``_wkv_chunked``).  The
-reference has no kernel for either: both stay plain PyTorch.  Decode
-carries (S, x_prev) — O(1) state.
+reference has no kernel for either: both stay plain PyTorch.  On meta
+tensors (the dry-run) their step and chunk loops are trip-counted
+(``launch/op_analysis.py``).  Decode carries (S, x_prev) — O(1) state.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.distributed import perf_options
+from repro_torch.launch.op_analysis import stack_trips, trips
 from repro_torch.models.common import dense_init, normal, param
 
 HEAD_SIZE = 64
@@ -88,10 +90,15 @@ def _wkv_scan(r, k, v, w, u, s0):
     bonus = (r * u[None, None] * k).sum(-1, keepdim=True) * v
     s = s0
     outs = []
-    for rt, kvt, wt in zip(r.unbind(1), kv.unbind(1), w.unbind(1)):
+    if r.is_meta:   # step slices one trip at a time (unbind makes all S)
+        steps = ((r[:, t], kv[:, t], w[:, t])
+                 for t in trips(r.shape[1], r, "wkv"))
+    else:
+        steps = zip(r.unbind(1), kv.unbind(1), w.unbind(1))
+    for rt, kvt, wt in steps:
         outs.append((rt[:, :, None, :] @ s)[:, :, 0])
         s = torch.addcmul(kvt, s, wt[..., None])
-    return torch.stack(outs, dim=1) + bonus, s
+    return stack_trips(outs, r.shape[1], dim=1) + bonus, s
 
 
 def _wkv_chunked(r, k, v, w, u, s0, chunk: int = 16):
@@ -133,14 +140,14 @@ def _wkv_chunked(r, k, v, w, u, s0, chunk: int = 16):
 
     s_carry = s0
     outs = []
-    for i in range(nc):
+    for i in trips(nc, r, "wkv"):
         inter = torch.einsum("bhtd,bhdv->bhtv", q1[i], s_carry)
         intra = torch.einsum("bhts,bhsv->bhtv", a[i], vb[i])
         outs.append(inter + intra + bonus[i][..., None] * vb[i])
         decay = torch.exp(cs_end[i][:, :, 0, :, None])           # [b,h,d,1]
         s_carry = s_carry * decay \
             + torch.einsum("bhsd,bhsv->bhdv", k_end[i], vb[i])
-    out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, S, h, d)
+    out = stack_trips(outs, nc).permute(1, 0, 3, 2, 4).reshape(b, S, h, d)
     return out, s_carry
 
 

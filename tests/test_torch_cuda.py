@@ -41,6 +41,16 @@ recurrentgemma-2b train step through both backward kernels against the same
 step on the CPU (loss 1e-4, every gradient leaf within 1e-4 of its max
 |g|).
 
+The dry-run on the card (``launch/dryrun.py``): a reduced recurrentgemma-2b
+prefill (S 1 100: one flash_attention and two lru_scan launches, no
+plain-version call) and decode cell measured against their meta records —
+the argument bytes of the same tensors equal, the matrix products' FLOPs
+under ``FlopCounterMode`` equal with attention and the scan taken out (the
+kernels launch through ctypes, which it does not see);
+``examples/serve_lm_torch.py`` on the card by default, its greedy tokens
+equal to the same parameters' on the CPU; and two reduced forwards on the
+card bit-equal, two on the CPU bit-equal (ROADMAP F4).
+
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import numpy as np
@@ -63,6 +73,7 @@ from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.lru_scan import kernel as lru_kernel
 from repro_torch.kernels.lru_scan import ops as lru_ops
+from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_worker_mesh
 from repro_torch.models import model as M
 from repro_torch.runtime import engine as fct_engine
@@ -917,3 +928,77 @@ def test_contracts_on_card(cuda_device):
     assert kernel.LAUNCHES["fct_count_exact_int32"] > 0
     assert kernel.LAUNCHES["fct_count_exact_int64"] > 0
     assert ops.PATH_COUNTS["ref"] == 0
+
+
+def test_dryrun_measured_cells_on_card(cuda_device):
+    import dataclasses
+    from repro_torch.configs.base import SHAPES
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("recurrentgemma-2b").reduced()
+    for kind, s, launches in (("prefill_32k", 1100,
+                               {"flash_attention": 1, "lru_scan": 2}),
+                              ("decode_32k", 40, {})):
+        shape = dataclasses.replace(SHAPES[kind], global_batch=2, seq_len=s)
+        rec = dryrun.meta_record(cfg, shape)
+        flash_ops.reset_path_counts()
+        lru_ops.reset_path_counts()
+        got = dryrun.measure(cfg, shape, rec, cuda_device)
+        assert got["arg_bytes"] == rec["arg_bytes"]
+        assert got["flops"] == got["meta_flops"] > 0
+        assert got["launches"] == launches
+        assert flash_ops.PATH_COUNTS["ref"] == lru_ops.PATH_COUNTS["ref"] == 0
+        assert got["max_memory_allocated"] >= got["arg_bytes"]
+
+
+def test_serve_lm_example_on_card(cuda_device):
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "examples" / \
+        "serve_lm_torch.py"
+    spec = importlib.util.spec_from_file_location("_serve_lm_torch", path)
+    port = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(port)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    prompts, gen = port.main([])
+    assert prompts.is_cuda and gen.is_cuda and gen.shape == (4, 20)
+    cfg = get_arch("smollm-360m").reduced()
+    params = M.init_params(cfg, cuda_device, seed=5)
+    want = port.serve(params.to("cpu"), cfg, prompts.cpu(), 20)
+    got = port.serve(params.to(cuda_device), cfg, prompts, 20)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_reduced_model_forward_repeatable(cuda_device):
+    """ROADMAP F4: which side of test_reduced_model_forward_through_kernels
+    can vary from run to run.  Two card forwards on one input are bit-equal
+    and two CPU forwards at one thread count are; prints the largest
+    card-vs-CPU difference over a few inputs, and the CPU forward's
+    difference between one thread and the default count."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("recurrentgemma-2b").reduced()
+    params = M.init_params(cfg, cuda_device, seed=3)
+    cpu_params = M.init_params(cfg, "cpu")
+    cpu_params.load_state_dict({k: v.cpu() for k, v in
+                                params.state_dict().items()})
+    rng = np.random.default_rng(74)
+    worst = 0.0
+    threads = torch.get_num_threads()
+    for _ in range(4):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1100)))
+        card = [M.forward(params, {"tokens": tok.to(cuda_device)}, cfg)[0]
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(card[0], card[1])
+        cpu = [M.forward(cpu_params, {"tokens": tok}, cfg)[0]
+               for _ in range(2)]
+        assert torch.equal(cpu[0], cpu[1])
+        torch.set_num_threads(1)
+        try:
+            one = M.forward(cpu_params, {"tokens": tok}, cfg)[0]
+        finally:
+            torch.set_num_threads(threads)
+        worst = max(worst, (card[0].cpu() - cpu[0]).abs().max().item())
+        print(f"[F4] card vs CPU max |diff| {worst:.4g}; CPU 1 thread vs "
+              f"{threads}: max |diff| "
+              f"{(one - cpu[0]).abs().max().item():.4g}, bit-equal "
+              f"{torch.equal(one, cpu[0])}")

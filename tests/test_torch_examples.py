@@ -1,18 +1,28 @@
-"""The port's FCT examples (``examples/quickstart_torch.py``,
-``examples/fct_query_expansion_torch.py``) on the CPU against the JAX
-package's examples, run in the same process on ``build_db(seed=0)``: the
+"""The port's examples on the CPU against the JAX package's, run in the
+same process: the FCT examples (``examples/quickstart_torch.py``,
+``examples/fct_query_expansion_torch.py``) on ``build_db(seed=0)`` (the
 same database, the same printed answer, bit-equal term ids and
-frequencies, the same expansion result counts — and the card by default."""
+frequencies, the same expansion result counts), and
+``examples/serve_lm_torch.py`` on the JAX example's own parameters and
+prompts (``params_from_reference``; reduced configurations in float32):
+every greedy token equal, and the same printed requests — and each on the
+card by default."""
 import importlib.util
 from pathlib import Path
 
+import jax
 import numpy as np
 import pytest
 import torch
 
 from repro.api import FCTRequest as JaxRequest
 from repro.api import FCTSession as JaxSession
+from repro.configs.base import get_arch as jax_get_arch
+from repro.models import model as JM
+from repro.train.step import make_serve_step as jax_make_serve_step
+from repro_torch.configs.base import get_arch
 from repro_torch.data import demo
+from repro_torch.models.convert import params_from_reference
 
 EXAMPLES = Path(__file__).resolve().parent.parent / "examples"
 
@@ -86,8 +96,46 @@ def test_query_expansion_matches_the_reference(capsys):
     np.testing.assert_array_equal(res.freqs, want.freqs)
 
 
+@pytest.mark.parametrize("arch", ["smollm-360m", "recurrentgemma-2b"])
+def test_serve_lm_matches_the_reference(arch, capsys, monkeypatch):
+    ref, port = _load("serve_lm"), _load("serve_lm_torch")
+    monkeypatch.setattr("sys.argv", ["serve_lm.py", "--arch", arch])
+    ref.main()
+    want_out = capsys.readouterr().out.splitlines()
+    # the JAX example's parameters, prompts and loop, as it builds them
+    jcfg = jax_get_arch(arch).reduced()
+    key = jax.random.PRNGKey(0)
+    jp = JM.init_params(jcfg, key)
+    b, prompt_len, gen_len = 4, 12, 20
+    prompts = np.asarray(jax.random.randint(key, (b, prompt_len), 0,
+                                            jcfg.vocab_size))
+    cache = JM.init_cache(jcfg, b, prompt_len + gen_len)
+    step = jax.jit(jax_make_serve_step(jcfg))
+    for t in range(prompt_len):
+        tok, cache = step(jp, cache, prompts[:, t:t + 1], t)
+    want = [np.asarray(tok)]
+    for t in range(prompt_len, prompt_len + gen_len - 1):
+        tok, cache = step(jp, cache, tok[:, None], t)
+        want.append(np.asarray(tok))
+    want = np.stack(want, axis=1)
+    cfg = get_arch(arch).reduced()
+    params = params_from_reference(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    got = port.serve(params, cfg, torch.from_numpy(np.array(prompts)).long(),
+                      gen_len)
+    np.testing.assert_array_equal(got.numpy(), want)
+    lines = [f"  req{i}: prompt={list(map(int, prompts[i]))[:6]}... "
+             f"-> {got[i].tolist()[:10]}..." for i in range(b)]
+    assert lines == [ln for ln in want_out if ln.startswith("  req")]
+    prompts_out, gen = port.main(["--arch", arch, "--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == want_out[0]          # the same shape line
+    assert out[-1].endswith("end to end on cpu")
+    assert gen.shape == (b, gen_len) and prompts_out.shape == (b, prompt_len)
+
+
 @pytest.mark.parametrize("name", ["quickstart_torch",
-                                  "fct_query_expansion_torch"])
+                                  "fct_query_expansion_torch",
+                                  "serve_lm_torch"])
 def test_examples_run_on_the_card_by_default(name):
     port = _load(name)
     if torch.cuda.is_available():

@@ -30,6 +30,7 @@ def _sources():
     assert len(files) > 20
     examples = sorted((ROOT / "examples").glob("*_torch.py"))
     assert len(examples) >= 3
+    assert ROOT / "examples" / "serve_lm_torch.py" in examples
     return files + examples + [ROOT / "chip_smoke.py"]
 
 
@@ -60,7 +61,9 @@ def test_every_module_imports_without_a_card():
     assert "repro_torch.distributed.checkpoint" in names
     for module in ("train.step", "train.optimizer", "train.loop",
                    "train.dp_trainer", "distributed.compression",
-                   "launch.train", "models.convert"):
+                   "launch.train", "models.convert", "launch.dryrun",
+                   "launch.op_analysis", "launch.roofline", "launch.sweep",
+                   "launch.report", "distributed.sharding"):
         assert f"repro_torch.{module}" in names
     for name in names:
         importlib.import_module(name)
