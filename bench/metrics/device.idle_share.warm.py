@@ -1,0 +1,3 @@
+"""Share of the traced stretch of the window (its first queries) in which
+no kernel or copy ran on the device, in % (``bench/devtrace.py``)."""
+from bench.devtrace import idle_share as read  # noqa: F401
