@@ -1,0 +1,18 @@
+"""Median over the window's queries of the summed ``fct.route``, ``fct.mr1``
+and ``fct.mr2`` spans of each query's trace, in ms: the host's time to
+enqueue routing, MR¹ and MR² of every group (the kernels run later, on the
+device).  None where no query's trace holds such a span (a program without
+them)."""
+import statistics
+
+NAMES = ("fct.route", "fct.mr1", "fct.mr2")
+
+
+def read(run):
+    per_query, seen = [], False
+    for a in run.answers:
+        spans = [s for s in a[2].trace.spans() if s.name in NAMES] \
+            if a[2].trace is not None else []
+        seen = seen or bool(spans)
+        per_query.append(sum(s.dur_ns for s in spans) / 1e6)
+    return statistics.median(per_query) if seen else None

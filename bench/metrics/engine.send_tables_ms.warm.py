@@ -1,0 +1,18 @@
+"""Median over the window's queries of the summed ``store.group_args`` spans
+of each query's trace, in ms: the host's assembly of the stacked send
+tables and the store's column lookups of each group (``store_group_args``,
+with any ``store.upload`` and ``store.chunk_assemble`` inside it). None
+where no query's trace holds such a span (a program without them)."""
+import statistics
+
+NAMES = ("store.group_args",)
+
+
+def read(run):
+    per_query, seen = [], False
+    for a in run.answers:
+        spans = [s for s in a[2].trace.spans() if s.name in NAMES] \
+            if a[2].trace is not None else []
+        seen = seen or bool(spans)
+        per_query.append(sum(s.dur_ns for s in spans) / 1e6)
+    return statistics.median(per_query) if seen else None

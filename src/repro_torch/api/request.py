@@ -69,7 +69,15 @@ class FCTResponse:
     decode) — plus ``execute_ms`` (= dispatch + collect + finalize) and
     ``total_ms`` (= plan + execute).  The same keys appear on the sync,
     batched, pipelined and gateway cache-hit paths (a hit reports zero
-    plan/dispatch/collect).  ``engine_stats`` is the *delta* of the engine
+    plan/dispatch/collect).  On CUDA, a response that dispatched device
+    work also carries ``device_route_ms``, ``device_mr1_ms`` and
+    ``device_mr2_ms``: the device time of routing, MR¹ and MR², between
+    CUDA events the engine records on the stream after the uploads and
+    after each stage, summed over the query's groups (a batch's shared
+    groups count on its first response only).  Such an interval holds the
+    stage's kernels and any idle the host leaves between them while it
+    still enqueues the stage.  They are absent on the CPU
+    and on cache hits.  ``engine_stats`` is the *delta* of the engine
     counters attributable to this query (for ``query_batch``, to the whole
     batch — the dispatch is shared); ``cold`` is True iff that delta
     includes at least one program build.  ``cache_hit`` marks responses the
@@ -81,10 +89,16 @@ class FCTResponse:
     cache).
 
     ``trace`` is the request's :class:`repro_torch.obs.Trace` — the recorded
-    span tree (plan/dispatch/collect/finalize, plus store-upload /
-    cache-lookup / batcher spans where they apply); ``trace.records()`` gives
-    structured dicts, ``repro_torch.obs.chrome_trace([...])`` a Chrome
-    trace_event document.
+    span tree: ``plan`` (with ``plan.tuple_sets``, ``plan.cns``,
+    ``plan.cn_plan`` and ``plan.map_only`` beneath it when the plan was not
+    cached), ``dispatch``, the engine's ``engine.dispatch_group`` spans
+    (``store.group_args`` with ``store.upload`` / ``store.chunk_assemble``,
+    or ``engine.host_stack``; ``engine.upload``; ``fct.route``, ``fct.mr1``,
+    ``fct.mr2``), ``collect``, ``finalize``, plus cache-lookup / batcher
+    spans where they apply.  Every span is host time; the device-stage
+    times above are kept out of it.  ``trace.records()`` gives structured
+    dicts, ``repro_torch.obs.chrome_trace([...])`` a Chrome trace_event
+    document.
 
     ``accum_policy`` names the device-accumulation precision the histogram
     carries: ``"int32-checked"`` — exact below 2^31, wrap-around raises
@@ -144,6 +158,13 @@ class AppendResult:
     counts invalidated routing plans (row routing does change — but CN
     enumerations, built programs and the per-chunk device store survive,
     which is what keeps post-append queries warm).
+
+    ``trace`` is the append's :class:`repro_torch.obs.Trace`: through the
+    gateway, a ``gateway.append`` root with ``session.append``, one
+    ``session.delta_freq`` per patched (keywords, r_max) — the planner's
+    ``plan.cn_plan`` and the engine's spans beneath it — and
+    ``gateway.patch``; from ``FCTSession.append`` alone, its
+    ``session.append`` span.
     """
 
     relation: str
@@ -154,3 +175,4 @@ class AppendResult:
     data_epoch: int
     tuple_sets_patched: int = 0
     plans_dropped: int = 0
+    trace: Optional[object] = None       # repro_torch.obs.Trace (span tree)

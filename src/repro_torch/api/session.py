@@ -29,6 +29,15 @@ Three execution paths:
 session warm; ``delta_freq`` is the exact histogram of the new chunk, which
 the serving gateway adds to its memoized results.
 
+Spans (``repro_torch.obs``) on each request's trace: ``plan`` with children
+``plan.tuple_sets`` (a tuple-set miss), ``plan.cns`` (CN enumeration and
+pruning), one ``plan.cn_plan`` per ``build_cn_plan`` and one
+``plan.map_only`` per single-relation CN — none on a plan-cache hit — then
+``dispatch`` (the engine's ``engine.dispatch_group`` spans beside it on the
+batch leader's trace), ``collect`` and ``finalize``.  An append records
+``session.append`` (and each ``delta_freq`` a ``session.delta_freq``) on the
+caller's active trace, or on a trace of its own.
+
 The session runs on the card unless the caller asks for the CPU:
 ``device=None`` means CUDA, and asking for CUDA where there is none raises.
 """
@@ -53,7 +62,8 @@ from repro_torch.core.star import topk_terms
 from repro_torch.data.schema import (PAD_ID, StarSchema, keyword_mask,
                                      tokens_histogram)
 from repro_torch.launch.mesh import make_worker_mesh
-from repro_torch.obs import Trace, default_registry, maybe_activate
+from repro_torch.obs import (Trace, current_trace, default_registry,
+                             maybe_activate)
 from repro_torch.obs import span as obs_span
 from repro_torch.runtime.cache import ExecutableCache, LruDict
 from repro_torch.runtime.engine import FCTEngine, default_engine
@@ -63,7 +73,8 @@ _ENGINE_COUNTERS = ("hits", "misses", "traces", "evictions",
                     "batches_run", "cns_run", "bytes_shipped",
                     "column_bytes_shipped", "store_uploads", "store_hits",
                     "store_upload_bytes", "store_chunk_assembles",
-                    "device_to_host_bytes", "groups_pruned", "pruned_rows")
+                    "device_to_host_bytes", "groups_pruned", "pruned_rows",
+                    "fct_count_tokens")
 
 
 def _cn_includes(cn: StarCN, role: str, dim_index: int) -> bool:
@@ -96,6 +107,33 @@ def _delta_tuple_sets(ts: TupleSets, role: str, dim_index: int,
     arr[:base_rows] = -1
     dk[dim_index] = arr
     return TupleSets(fact_kw=ts.fact_kw, dim_kw=dk, full=ts.full)
+
+
+def _traced_cn_plan(schema: StarSchema, ts: TupleSets, cn: StarCN,
+                    n_devices: int, **knobs) -> Optional[CNPlan]:
+    """``build_cn_plan`` inside a ``plan.cn_plan`` span (args ``n_rel``,
+    ``fact_rows``, ``shuffle_rows``; 0 rows for a single-relation CN)."""
+    with obs_span("plan.cn_plan", n_rel=cn.n_relations()) as sp:
+        plan = build_cn_plan(schema, ts, cn, n_devices, **knobs)
+        sp.args["fact_rows"] = 0 if plan is None else plan.fact.ref.n_rows
+        sp.args["shuffle_rows"] = 0 if plan is None else plan.shuffle_rows
+    return plan
+
+
+def _map_only_freq(schema: StarSchema, ts: TupleSets,
+                   cn: StarCN) -> np.ndarray:
+    """Word count of a single-relation CN's tuple-set rows (no shuffle),
+    inside a ``plan.map_only`` span."""
+    with obs_span("plan.map_only") as sp:
+        fact_idx, dim_idx = ts.cn_rows(cn)
+        if fact_idx is not None:
+            text = schema.fact.text[fact_idx]
+        else:
+            (i, rows), = dim_idx.items()
+            text = schema.dims[i].text[rows]
+        sp.args["rows"] = int(text.shape[0])
+        return tokens_histogram(text, np.ones(text.shape[0], np.int64),
+                                schema.vocab_size)
 
 
 @dataclasses.dataclass
@@ -178,6 +216,9 @@ class _InFlight:
     engine_before: Dict[str, int]
     dispatch_ms: float
     topk: Optional[object] = None       # TopkPending on the device-topk path
+    #: the dispatched groups' device-stage events (CUDA only), resolved by
+    #: ``FCTEngine.device_stage_ms`` after the collection's wait
+    stages: list = dataclasses.field(default_factory=list)
 
 
 class FCTSession:
@@ -297,7 +338,8 @@ class FCTSession:
                 self._c_ts_hits.inc()
                 return ts, self.schema, self._data_epoch
             epoch, schema = self._data_epoch, self.schema
-        ts = TupleSets.build(schema, keywords)  # outside the lock
+        with obs_span("plan.tuple_sets", n_keywords=len(keywords)):
+            ts = TupleSets.build(schema, keywords)  # outside the lock
         self._c_ts_misses.inc()
         with self._plan_lock:
             if self._data_epoch != epoch:  # mutated mid-build: serve the
@@ -367,7 +409,9 @@ class FCTSession:
         # an append landing mid-plan must not mix pre-append tuple sets with
         # post-append row arrays (torn read) — the snapshot pins one epoch
         ts, schema, epoch = self._get_tuple_sets(kws)
-        cns = prune_empty_cns(self._get_cns(len(kws), req.r_max), ts)
+        with obs_span("plan.cns") as sp:
+            cns = prune_empty_cns(self._get_cns(len(kws), req.r_max), ts)
+            sp.args["n_cns"] = len(cns)
         host_freq = np.zeros((schema.vocab_size,), np.int64)
         plans: List[CNPlan] = []
         shuffle_rows = shuffle_bytes = 0
@@ -379,20 +423,13 @@ class FCTSession:
         if mode == "uniform" and self.config.adaptive_rho:
             mode = "adaptive"
         for cn in cns:
-            plan = build_cn_plan(schema, ts, cn, self._n_dev,
-                                 mode=mode, rho=req.rho,
-                                 sample_frac=req.sample_frac, salt=req.salt)
+            plan = _traced_cn_plan(schema, ts, cn, self._n_dev,
+                                   mode=mode, rho=req.rho,
+                                   sample_frac=req.sample_frac,
+                                   salt=req.salt)
             if plan is None:
                 # single-relation CN: a map-only word-count (no shuffle)
-                fact_idx, dim_idx = ts.cn_rows(cn)
-                if fact_idx is not None:
-                    text = schema.fact.text[fact_idx]
-                else:
-                    (i, rows), = dim_idx.items()
-                    text = schema.dims[i].text[rows]
-                host_freq += tokens_histogram(
-                    text, np.ones(text.shape[0], np.int64),
-                    schema.vocab_size)
+                host_freq += _map_only_freq(schema, ts, cn)
                 continue
             plans.append(plan)
             shuffle_rows += plan.shuffle_rows
@@ -460,8 +497,11 @@ class FCTSession:
     def _respond(self, planned: _PlannedQuery, *, terms, ids, f, all_freqs,
                  finalize: str, engine_stats: Dict[str, int],
                  plan_ms: float, dispatch_ms: float, collect_ms: float,
-                 t0: float, t0_ns: int) -> FCTResponse:
-        """Shared response assembly of both finalize paths."""
+                 t0: float, t0_ns: int,
+                 device_ms: Optional[Dict[str, float]] = None) -> FCTResponse:
+        """Shared response assembly of both finalize paths; ``device_ms``
+        (the device-stage times, on the batch leader only) joins the
+        timings."""
         req = planned.request
         # responses are built on finalizer, flush-pool and sync-caller
         # threads concurrently — the registry-owned counter never loses
@@ -485,7 +525,8 @@ class FCTSession:
                      "collect_ms": round(collect_ms, 3),
                      "finalize_ms": round(finalize_ms, 3),
                      "execute_ms": round(execute_ms, 3),
-                     "total_ms": round(plan_ms + execute_ms, 3)},
+                     "total_ms": round(plan_ms + execute_ms, 3),
+                     **(device_ms or {})},
             engine_stats=engine_stats,
             cold=engine_stats.get("traces", 0) > 0,
             accum_policy=self.accum_policy.name,
@@ -494,7 +535,8 @@ class FCTSession:
 
     def _finish(self, planned: _PlannedQuery, freq: np.ndarray,
                 engine_stats: Dict[str, int], plan_ms: float,
-                dispatch_ms: float, collect_ms: float) -> FCTResponse:
+                dispatch_ms: float, collect_ms: float,
+                device_ms: Optional[Dict[str, float]] = None) -> FCTResponse:
         t0 = time.perf_counter()
         t0_ns = time.perf_counter_ns()
         req = planned.request
@@ -504,12 +546,14 @@ class FCTSession:
                              f=f, all_freqs=freq, finalize="host",
                              engine_stats=engine_stats, plan_ms=plan_ms,
                              dispatch_ms=dispatch_ms, collect_ms=collect_ms,
-                             t0=t0, t0_ns=t0_ns)
+                             t0=t0, t0_ns=t0_ns, device_ms=device_ms)
 
     def _finish_topk(self, planned: _PlannedQuery, ids: np.ndarray,
                      counts: np.ndarray, engine_stats: Dict[str, int],
                      plan_ms: float, dispatch_ms: float,
-                     collect_ms: float) -> FCTResponse:
+                     collect_ms: float,
+                     device_ms: Optional[Dict[str, float]] = None
+                     ) -> FCTResponse:
         """Device-topk finalize: the engine already excluded PAD/stop/
         keyword bins and tie-broke by term id on device — slice the O(k)
         candidates to the requested k and decode.  ``all_freqs`` is None:
@@ -522,7 +566,7 @@ class FCTSession:
                              f=f, all_freqs=None, finalize="device_topk",
                              engine_stats=engine_stats, plan_ms=plan_ms,
                              dispatch_ms=dispatch_ms, collect_ms=collect_ms,
-                             t0=t0, t0_ns=t0_ns)
+                             t0=t0, t0_ns=t0_ns, device_ms=device_ms)
 
     def _dispatch_planned(self, planned: Sequence[_PlannedQuery]) -> _InFlight:
         """Enqueue the device work of one or more planned queries (async).
@@ -552,6 +596,7 @@ class FCTSession:
             all_plans.extend(p.plans)
         t0 = time.perf_counter()
         t0_ns = time.perf_counter_ns()
+        stages: list = []
         with self._engine_lock:
             before = self._engine_snapshot()
             pending = topk = None
@@ -570,7 +615,7 @@ class FCTSession:
                         keywords=p0.keywords, excl=self._excl_dev,
                         host_extra=self._host_freq_device(p0),
                         store=self.store, accum=self.accum_policy,
-                        prune=self.config.topk_prune)
+                        prune=self.config.topk_prune, stages=stages)
             elif all_plans:
                 # relation columns come from the session's device-resident
                 # store: the first dispatch over a tuple set uploads its
@@ -582,7 +627,8 @@ class FCTSession:
                 with maybe_activate(planned[0].trace):
                     pending = self.engine.dispatch_plans(
                         all_plans, self.mesh, individual=individual,
-                        store=self.store, accum=self.accum_policy)
+                        store=self.store, accum=self.accum_policy,
+                        stages=stages)
         dispatch_ms = (time.perf_counter() - t0) * 1e3
         dur_ns = time.perf_counter_ns() - t0_ns
         n_groups = len(pending) if pending is not None else (
@@ -594,7 +640,7 @@ class FCTSession:
         return _InFlight(planned=planned, owners=np.asarray(owners, np.int64),
                          pending=pending, individual=individual,
                          n_plans=len(all_plans), engine_before=before,
-                         dispatch_ms=dispatch_ms, topk=topk)
+                         dispatch_ms=dispatch_ms, topk=topk, stages=stages)
 
     def _finalize(self, flight: _InFlight) -> List[FCTResponse]:
         """Block on the device results and build the responses."""
@@ -611,8 +657,10 @@ class FCTSession:
             else:
                 total = self.engine.collect_total(flight.pending, vocab)
         # the counter delta is taken after collection so the transfer-side
-        # counters (device_to_host_bytes) land in this query's stats
+        # counters (device_to_host_bytes) land in this query's stats; the
+        # stage events are complete once the results are on the host
         delta = self._engine_delta(flight.engine_before)
+        device_ms = self.engine.device_stage_ms(flight.stages)
         collect_ms = (time.perf_counter() - t0) * 1e3
         dur_ns = time.perf_counter_ns() - t0_ns
         for p in flight.planned:
@@ -623,7 +671,7 @@ class FCTSession:
             p = flight.planned[0]
             return [self._finish_topk(p, topk_ids, topk_counts, delta,
                                       p.plan_ms, flight.dispatch_ms,
-                                      collect_ms)]
+                                      collect_ms, device_ms)]
         out = []
         for qi, p in enumerate(flight.planned):
             if p.plans:
@@ -633,9 +681,11 @@ class FCTSession:
                     freq = p.host_freq + total
             else:  # copy: host_freq may be shared via the plan cache
                 freq = p.host_freq.copy()
+            # shared groups' device time goes to the batch leader, as the
+            # engine's spans do
             out.append(self._finish(p, freq, delta,
                                     p.plan_ms, flight.dispatch_ms,
-                                    collect_ms))
+                                    collect_ms, device_ms if qi == 0 else None))
         return out
 
     # -- public execution paths ---------------------------------------------
@@ -737,6 +787,10 @@ class FCTSession:
                rows: Sequence[Mapping]) -> AppendResult:
         """Append rows to one relation — the DATA-ONLY mutation path.
 
+        Runs inside a ``session.append`` span on the caller's active trace
+        (the gateway's), or on a trace of its own; either is returned as
+        ``AppendResult.trace``.
+
         Unlike ``invalidate()`` (the arbitrary-mutation hook, which drops
         everything data-derived), an append is pure growth, and almost all
         session state survives it:
@@ -760,6 +814,16 @@ class FCTSession:
         serialized by the caller when cached results are patched from the
         returned delta (the gateway's per-lane append lock does).
         """
+        trace = current_trace()
+        own = Trace() if trace is None else None
+        with maybe_activate(own), obs_span("session.append",
+                                           relation=relation) as sp:
+            result = self._append(relation, rows)
+            sp.args["rows"] = result.rows_appended
+        return dataclasses.replace(result, trace=own or trace)
+
+    def _append(self, relation: str,
+                rows: Sequence[Mapping]) -> AppendResult:
         keys, text = self._encode_rows(relation, rows)
         role, dim_index = self.schema.relation_role(relation)
         with self._plan_lock:
@@ -820,7 +884,17 @@ class FCTSession:
         Must run against the epoch ``result`` produced (raises
         ``RuntimeError`` if another mutation overtook it): callers patching
         caches serialize append → delta → patch, as the gateway does.
+
+        Runs inside a ``session.delta_freq`` span on the active trace, with
+        the planner's ``plan.cn_plan`` / ``plan.map_only`` spans and the
+        engine's spans beneath it.
         """
+        with obs_span("session.delta_freq", n_keywords=len(keywords),
+                      r_max=r_max):
+            return self._delta_freq(result, keywords, r_max)
+
+    def _delta_freq(self, result: AppendResult, keywords: Sequence,
+                    r_max: int) -> np.ndarray:
         if result.rows_appended == 0:
             return np.zeros((self.schema.vocab_size,), np.int64)
         kws = self.resolve_keywords(keywords)
@@ -839,18 +913,10 @@ class FCTSession:
         plans: List[CNPlan] = []
         for cn in cns:
             # totals are mode-invariant: plan the delta uniformly
-            plan = build_cn_plan(schema, dts, cn, self._n_dev,
-                                 mode="uniform")
+            plan = _traced_cn_plan(schema, dts, cn, self._n_dev,
+                                   mode="uniform")
             if plan is None:  # single-relation CN: map-only over new rows
-                fact_idx, dim_idx = dts.cn_rows(cn)
-                if fact_idx is not None:
-                    text = schema.fact.text[fact_idx]
-                else:
-                    (i, rows_i), = dim_idx.items()
-                    text = schema.dims[i].text[rows_i]
-                delta += tokens_histogram(
-                    text, np.ones(text.shape[0], np.int64),
-                    schema.vocab_size)
+                delta += _map_only_freq(schema, dts, cn)
                 continue
             plans.append(plan)
         if plans:

@@ -9,7 +9,8 @@ Runs on the CUDA device by default (``--device cpu`` to run on the CPU).
 ``--repeat`` re-runs the query to show the warm latency next to the cold one;
 the cold/warm label comes from the engine's program-build delta of that rep.
 ``--trace-out`` writes every rep's span tree as Chrome trace-event JSON
-(chrome://tracing or Perfetto).
+(chrome://tracing or Perfetto).  On the card each rep also prints the
+device time of routing, MR¹ and MR² (``timings['device_*_ms']``).
 """
 from __future__ import annotations
 
@@ -63,6 +64,10 @@ def main(argv=None):
               f"finalize {t['finalize_ms']:.1f}) "
               f"builds={res.engine_stats['traces']} "
               f"uploads={res.engine_stats['store_uploads']}")
+        if "device_route_ms" in t:
+            print(f"  device: route {t['device_route_ms']:.2f} "
+                  f"mr1 {t['device_mr1_ms']:.2f} "
+                  f"mr2 {t['device_mr2_ms']:.2f} ms")
     print(f"device={session.device} workers={args.workers} "
           f"query={args.keywords} mode={args.mode} "
           f"CNs={res.n_cns} (joined {res.n_joined_cns}) "

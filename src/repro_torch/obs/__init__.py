@@ -11,11 +11,12 @@ from repro_torch.obs.metrics import (LATENCY_BUCKETS_MS, OCCUPANCY_BUCKETS,
                                      LabeledRegistry, MetricsRegistry,
                                      default_registry, render_key)
 from repro_torch.obs.trace import (Span, Trace, current_trace, maybe_activate,
-                                   span)
+                                   set_span_hook, span)
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "LabeledRegistry", "MetricsRegistry",
     "LATENCY_BUCKETS_MS", "OCCUPANCY_BUCKETS", "default_registry",
-    "render_key", "Span", "Trace", "current_trace", "maybe_activate", "span",
+    "render_key", "Span", "Trace", "current_trace", "maybe_activate",
+    "set_span_hook", "span",
     "JsonLinesReporter", "chrome_trace", "write_chrome_trace",
 ]

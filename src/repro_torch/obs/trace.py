@@ -23,6 +23,13 @@ Two recording styles:
 Timestamps are ``time.perf_counter_ns`` — monotonic and shared across
 threads of one process, which is what Chrome's trace viewer needs to line
 spans up.
+
+One hook (``set_span_hook``) lets a layer that knows a device profiler
+mirror every ``span()`` into it: the hook is called with the span's name
+when the span opens and returns an entered context (or ``None``), which is
+exited when the span closes.  ``repro_torch.runtime`` installs one that opens
+a ``torch.profiler.record_function`` range while a profiler is recording, so
+this module stays free of torch.
 """
 from __future__ import annotations
 
@@ -30,10 +37,22 @@ import itertools
 import threading
 import time
 from contextlib import contextmanager
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 _REQUEST_IDS = itertools.count(1)  # itertools.count.__next__ is GIL-atomic
 _TLS = threading.local()
+#: called with a recorded span's name as it opens; returns an entered
+#: context to exit when the span closes, or None (see ``set_span_hook``)
+_SPAN_HOOK: Optional[Callable[[str], Any]] = None
+
+
+def set_span_hook(hook: Optional[Callable[[str], Any]]):
+    """Install ``hook`` for every recorded ``span()`` (None removes it);
+    returns the hook it replaces.  The hook runs on the span's own thread
+    and should cost one check when it has nothing to do."""
+    global _SPAN_HOOK
+    prev, _SPAN_HOOK = _SPAN_HOOK, hook
+    return prev
 
 
 class Span:
@@ -155,12 +174,16 @@ def span(name: str, **args) -> Iterator[Span]:
         yield Span(name, 0, 0, 0, 0, threading.get_ident(), dict(args))
         return
     trace, stack = state
+    hook = _SPAN_HOOK
     sp = Span(name, next(trace._seq), stack[-1], time.perf_counter_ns(), 0,
               threading.get_ident(), dict(args))
+    mirror = hook(name) if hook is not None else None
     stack.append(sp.span_id)
     try:
         yield sp
     finally:
+        if mirror is not None:
+            mirror.__exit__(None, None, None)
         sp.dur_ns = time.perf_counter_ns() - sp.t0_ns
         stack.pop()
         trace._record(sp)

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import Callable, Dict, Hashable, Optional
+from typing import Callable, Dict, Hashable, Optional, Tuple
 
 from repro_torch.obs import default_registry
 
@@ -98,16 +98,23 @@ class ExecutableCache:
         exactly one program and the loser's build is discarded (both builds
         are counted).
         """
+        return self.fetch(key, builder)[0]
+
+    def fetch(self, key: Hashable, builder: Callable[[], Callable]
+              ) -> Tuple[Callable, bool]:
+        """``get_or_build`` that also says whether this call built the
+        program (the engine puts it on the span of the dispatch that paid
+        for the build)."""
         with self._lock:
             fn = self._fns.hit(key)
         if fn is not None:
             self._c_hits.inc()
-            return fn
+            return fn, False
         self._c_misses.inc()
         fn = builder()
         self._c_traces.inc()
         with self._lock:
-            return self._fns.put(key, fn)
+            return self._fns.put(key, fn), True
 
     def __len__(self) -> int:
         return len(self._fns)

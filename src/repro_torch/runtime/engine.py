@@ -42,21 +42,35 @@ policy width.  Under
 ``INT32_CHECKED`` the host collection raises OverflowError on wrap-around
 (negative totals, best-effort); under ``INT64_EXACT`` everything accumulates
 in int64.
+
+Tracing.  Each dispatched group is an ``engine.dispatch_group`` obs span on
+the active trace (args ``path``, ``family``, ``n_cns``, ``n_devices`` and
+``built``, true when the dispatch built its program), with children
+``store.group_args`` (store path) or ``engine.host_stack`` (host path),
+``engine.upload`` and ``fct.route`` / ``fct.mr1`` / ``fct.mr2`` (core/fct.py):
+host time, all of it.  Device time per stage comes from four CUDA events a
+group, recorded on the current stream after the uploads and after each
+stage when the caller passes a ``stages`` list, and resolved after the
+collection's wait (:meth:`FCTEngine.device_stage_ms`).  This module also
+installs the obs span hook: while a torch profiler records, every obs span
+opens a ``record_function`` range of its name, so the profile shows the
+program's spans on its own clock beside the kernels they launch.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.accum import AccumPolicy
-from repro_torch.core.fct import _device_fct_local
+from repro_torch.core.fct import _device_fct_local, _mark
 from repro_torch.core.plan import CNPlan
 from repro_torch.launch.mesh import (VirtualMesh, all_gather, psum,
                                      psum_scatter, vocab_padded)
-from repro_torch.obs import default_registry
+from repro_torch.obs import default_registry, set_span_hook
 from repro_torch.obs import span as obs_span
 from repro_torch.runtime.batch import (BUCKET_MIN, PlanSignature, RelationSig,
                                        bucket_pow2, group_plan_indices,
@@ -75,9 +89,57 @@ KW_BUCKET_MIN = 8  # floor for padding the keyword-exclusion id vector
 #: so the relation slot carries one fixed minimal shape.
 _TOPK_REL = RelationSig(rows=BUCKET_MIN, cap=BUCKET_MIN, text_len=BUCKET_MIN)
 
+#: the device-stage keys :meth:`FCTEngine.device_stage_ms` fills, in the
+#: order of the events that bound them
+DEVICE_STAGES = ("device_route_ms", "device_mr1_ms", "device_mr2_ms")
+
+_PROFILER = torch.autograd.profiler
+
+
+def _profiler_range(name: str):
+    """The obs span hook: a ``record_function`` range of the span's name
+    while a torch profiler records, else None (one check)."""
+    if not _PROFILER._is_profiler_enabled:
+        return None
+    rng = _PROFILER.record_function(name)
+    rng.__enter__()
+    return rng
+
+
+set_span_hook(_profiler_range)
+
+
+class _GroupMarks:
+    """Timing events of one dispatched group, taken from the engine's pool
+    as they are recorded: after the uploads, after routing, after MR¹,
+    after MR²."""
+
+    __slots__ = ("pool", "events")
+
+    def __init__(self, pool: collections.deque) -> None:
+        self.pool = pool
+        self.events: List[torch.cuda.Event] = []
+
+    def record(self) -> None:
+        try:
+            ev = self.pool.pop()
+        except IndexError:      # the pool grows to the most events in flight
+            ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append(ev)
+
+
+def _mr2_token_slots(sig: PlanSignature, n_stack: int) -> int:
+    """Token slots one group hands to ``weighted_histogram``: every routed
+    row slot of every relation, ``n_stack * P * P * cap``, times its padded
+    ``text_len`` — padding and null CNs included, as launched."""
+    P = sig.n_devices
+    return n_stack * P * P * sum(r.cap * r.text_len
+                                 for r in (sig.fact,) + tuple(sig.dims))
+
 
 def _vmapped_cns(fact, dims, sig: PlanSignature, reduce_cns: bool,
-                 reduce_scatter: bool) -> torch.Tensor:
+                 reduce_scatter: bool, marks=None) -> torch.Tensor:
     """Body shared by every histogram family: MR¹+MR² over the leading CN
     axis, then the cross-worker aggregation.
 
@@ -92,11 +154,11 @@ def _vmapped_cns(fact, dims, sig: PlanSignature, reduce_cns: bool,
     multiple of P, the layout of the reference's ``psum_scatter`` output
     gathered to the host; otherwise it is the reference's psum layout, the
     whole vocab.  Integer addition is associative, so both give
-    bit-identical totals."""
+    bit-identical totals.  ``marks`` goes to the body's stage events."""
     hists = _device_fct_local(fact, dims,
                               domains=tuple(d.domain for d in sig.dims),
-                              vocab=sig.vocab,
-                              accum=sig.accum)                 # [N, vocab]
+                              vocab=sig.vocab, accum=sig.accum,
+                              marks=marks)                     # [N, vocab]
     acc = sig.accum.dtype
     out = hists.sum(dim=0, dtype=acc) if reduce_cns else hists.to(acc)
     if reduce_scatter:
@@ -111,8 +173,10 @@ def _build_batched_fn(sig: PlanSignature, mesh: VirtualMesh,
     Inputs per relation are numpy ``text [N, P, S, L]``, ``keys [N, P, S]``
     (dim) or ``[N, P, S, m]`` (fact, the CN's own columns) and ``send [N,
     P, P, C]`` (``runtime.batch.stack_group``); the program uploads them
-    (pageable copies, as the reference ships its host arrays) and runs the
-    same body as the store family, so the outputs are bit-identical.
+    (pageable copies, as the reference ships its host arrays, inside one
+    ``engine.upload`` span) and runs the same body as the store family, so
+    the outputs are bit-identical.  ``marks`` (optional) is the group's
+    stage events; the first is recorded after the uploads.
 
     ``reduce_cns=True``  -> freq[vocab]     (CN axis summed on device)
     ``reduce_cns=False`` -> freq[N, vocab]  (per-CN totals)
@@ -126,10 +190,14 @@ def _build_batched_fn(sig: PlanSignature, mesh: VirtualMesh,
         return {"text": text.unbind(0), "keys": keys.unbind(0),
                 "send": torch.from_numpy(rel["send"]).to(device)}
 
-    def program(fact, dims):
-        with torch.profiler.record_function("fct.group_batched"):
-            return _vmapped_cns(upload(fact), [upload(d) for d in dims], sig,
-                                reduce_cns, reduce_scatter)
+    def program(fact, dims, marks=None):
+        with obs_span("engine.upload") as sp:
+            sp.args["bytes"] = sum(v.nbytes for rel in (fact, *dims)
+                                   for v in rel.values())
+            fact_d, dims_d = upload(fact), [upload(d) for d in dims]
+            _mark(marks)
+        return _vmapped_cns(fact_d, dims_d, sig, reduce_cns, reduce_scatter,
+                            marks)
 
     return program
 
@@ -140,9 +208,10 @@ def _build_store_fn(sig: PlanSignature, mesh: VirtualMesh, n_stack: int,
 
     Inputs per relation are ``n_stack`` device tensors (one per CN slot,
     each ``[P, S, ...]`` from the session's RelationStore) plus the
-    host-shipped stacked send tables, which the program uploads; the fact
-    additionally carries per-CN key-column indices that gather each CN's
-    columns out of the full-width stored key matrix.
+    host-shipped stacked send tables, which the program uploads (one
+    ``engine.upload`` span); the fact additionally carries per-CN key-column
+    indices that gather each CN's columns out of the full-width stored key
+    matrix.  ``marks`` as for the host-stacked family.
     """
     device = mesh.device
 
@@ -152,11 +221,15 @@ def _build_store_fn(sig: PlanSignature, mesh: VirtualMesh, n_stack: int,
             out[k] = torch.from_numpy(rel[k]).to(device)
         return out
 
-    def program(fact, dims):
-        with torch.profiler.record_function("fct.group_store"):
-            return _vmapped_cns(upload(fact, "send", "cols"),
-                                [upload(d, "send") for d in dims], sig,
-                                reduce_cns, reduce_scatter)
+    def program(fact, dims, marks=None):
+        with obs_span("engine.upload") as sp:
+            sp.args["bytes"] = (fact["send"].nbytes + fact["cols"].nbytes
+                                + sum(d["send"].nbytes for d in dims))
+            fact_d = upload(fact, "send", "cols")
+            dims_d = [upload(d, "send") for d in dims]
+            _mark(marks)
+        return _vmapped_cns(fact_d, dims_d, sig, reduce_cns, reduce_scatter,
+                            marks)
 
     return program
 
@@ -287,7 +360,10 @@ class FCTEngine:
     store path, where columns are device-resident (store uploads are
     accounted by the RelationStore itself); ``device_to_host_bytes`` counts
     collection; ``groups_pruned`` / ``pruned_rows`` count the signature
-    groups (and their routed fact rows) the top-k family skipped.
+    groups (and their routed fact rows) the top-k family skipped;
+    ``fct_count_tokens`` counts the token slots MR² hands to
+    ``weighted_histogram`` (rows × ``text_len``, padding included), from
+    the launched shapes.
 
     ``reduce_scatter=True`` (default) returns multi-worker aggregates in the
     reduce-scatter layout (vocab padded to a multiple of P, each worker
@@ -313,6 +389,9 @@ class FCTEngine:
         self._c_d2h = self.metrics.counter("engine.device_to_host_bytes")
         self._c_groups_pruned = self.metrics.counter("engine.groups_pruned")
         self._c_pruned_rows = self.metrics.counter("engine.pruned_rows")
+        self._c_fct_tokens = self.metrics.counter("engine.fct_count_tokens")
+        # recycled CUDA timing events of the device-stage timers
+        self._events: collections.deque = collections.deque()
 
     @property
     def batches_run(self) -> int:
@@ -338,23 +417,23 @@ class FCTEngine:
 
     def _dispatch(self, sig: PlanSignature, group: Sequence[CNPlan],
                   mesh: VirtualMesh, reduce_cns: bool,
-                  store: Optional[RelationStore] = None):
-        """Span/profiler shell around :meth:`_dispatch_group`: one
-        ``engine.dispatch_group`` span per launch on the active trace, and a
-        ``torch.profiler.record_function`` range so device profiles line
-        host spans up with kernel activity."""
+                  store: Optional[RelationStore] = None,
+                  stages: Optional[list] = None):
+        """Span shell around :meth:`_dispatch_group`: one
+        ``engine.dispatch_group`` span per launch on the active trace (a
+        recording torch profiler sees it as a range of the same name, via
+        the obs span hook this module installs)."""
         path = "store" if store is not None else "host"
         family = "sum" if reduce_cns else "percn"
         with obs_span("engine.dispatch_group", n_cns=len(group), path=path,
-                      family=family, n_devices=sig.n_devices):
-            with torch.profiler.record_function(
-                    f"fct.dispatch_group:{path}.{family}"):
-                return self._dispatch_group(sig, group, mesh, reduce_cns,
-                                            store)
+                      family=family, n_devices=sig.n_devices) as group_span:
+            return self._dispatch_group(sig, group, mesh, reduce_cns, store,
+                                        stages, group_span)
 
     def _dispatch_group(self, sig: PlanSignature, group: Sequence[CNPlan],
                         mesh: VirtualMesh, reduce_cns: bool,
-                        store: Optional[RelationStore] = None):
+                        store: Optional[RelationStore] = None,
+                        stages: Optional[list] = None, group_span=None):
         """Enqueue one group on the device; returns the LAZY result tensor
         (callers block via ``_collect``).
 
@@ -366,6 +445,10 @@ class FCTEngine:
         tensors and only the send tables and fact key-column indices are
         shipped.  Without one, the host pads and stacks every column
         (``stack_group``) and the program uploads them.
+
+        ``stages`` (a list) asks for the group's device-stage events on
+        CUDA: four are recorded and appended to it as one entry.
+        ``group_span`` (the group's span) gets ``built``.
         """
         n_stack = len(group)
         if not reduce_cns and self.bucket:
@@ -377,11 +460,13 @@ class FCTEngine:
         if store is not None:
             if store.mesh != mesh:
                 raise ValueError("the store is bound to another mesh")
-            (fact, dims), shipped = store_group_args(store, group, sig,
-                                                     n_stack)
+            with obs_span("store.group_args", n_stack=n_stack) as ga:
+                (fact, dims), shipped = store_group_args(store, group, sig,
+                                                         n_stack)
+                ga.args["send_bytes"] = shipped
             kind = "fct_store" if reduce_cns else "fct_store_percn"
             key = (kind, sig, n_stack, mesh, agg)
-            fn = self.cache.get_or_build(
+            fn, built = self.cache.fetch(
                 key, lambda: _build_store_fn(sig, mesh, n_stack,
                                              reduce_cns=reduce_cns,
                                              reduce_scatter=rs))
@@ -393,7 +478,7 @@ class FCTEngine:
                     fact, dims = pad_cn_axis(fact, dims, n_stack)
             kind = "fct_batched" if reduce_cns else "fct_batched_percn"
             key = (kind, sig, n_stack, mesh, agg)
-            fn = self.cache.get_or_build(
+            fn, built = self.cache.fetch(
                 key, lambda: _build_batched_fn(sig, mesh,
                                                reduce_cns=reduce_cns,
                                                reduce_scatter=rs))
@@ -403,10 +488,35 @@ class FCTEngine:
                 d["send"].nbytes for d in dims)
             self._c_bytes.inc(shipped)
             self._c_column_bytes.inc(columns)
-        out = fn(fact, dims)
+        if group_span is not None:
+            group_span.args["built"] = built
+        marks = (_GroupMarks(self._events)
+                 if stages is not None and mesh.device.type == "cuda"
+                 else None)
+        out = fn(fact, dims, marks)
+        if marks is not None:
+            stages.append(marks.events)
         self._c_batches.inc()
         self._c_cns.inc(len(group))
+        self._c_fct_tokens.inc(_mr2_token_slots(sig, n_stack))
         return out
+
+    def device_stage_ms(self, stages: list) -> Dict[str, float]:
+        """Device milliseconds of routing, MR¹ and MR² summed over the
+        groups whose events ``stages`` holds (``DEVICE_STAGES`` keys; empty
+        when it holds none, as off CUDA): the time between consecutive
+        events on the stream, kernels and any idle between them.  Call it after the wait on the
+        groups' results: the events are complete then, so reading them
+        adds no synchronisation.  The events go back to the pool."""
+        if not stages:
+            return {}
+        sums = [0.0] * len(DEVICE_STAGES)
+        for events in stages:
+            for i in range(len(DEVICE_STAGES)):
+                sums[i] += events[i].elapsed_time(events[i + 1])
+            self._events.extend(events)
+        stages.clear()
+        return {k: round(v, 4) for k, v in zip(DEVICE_STAGES, sums)}
 
     def _collect(self, lazy: torch.Tensor) -> np.ndarray:
         raw = lazy.cpu().numpy()     # the one wait on the device
@@ -420,7 +530,8 @@ class FCTEngine:
     def dispatch_plans(self, plans: Sequence[CNPlan], mesh: VirtualMesh,
                        individual: bool = False,
                        store: Optional[RelationStore] = None,
-                       accum: Optional[AccumPolicy] = None):
+                       accum: Optional[AccumPolicy] = None,
+                       stages: Optional[list] = None):
         """Async half of a run: enqueue every signature group and return a
         pending handle ``[(plan_indices, lazy_result), ...]``; block with
         ``collect_total`` / ``collect_individual``.  ``individual=True``
@@ -428,12 +539,13 @@ class FCTEngine:
         a dispatch.  ``store`` (a RelationStore bound to this mesh) holds
         the relation columns; ``None`` takes the host-stacked families,
         which ship every column with the dispatch.  ``accum`` pins the
-        AccumPolicy (default int32-checked)."""
+        AccumPolicy (default int32-checked).  ``stages`` collects the
+        groups' device-stage events on CUDA (:meth:`device_stage_ms`)."""
         if not plans:
             raise ValueError("dispatch_plans needs at least one plan")
         return [(idxs, self._dispatch(sig, [plans[i] for i in idxs], mesh,
                                       reduce_cns=not individual,
-                                      store=store))
+                                      store=store, stages=stages))
                 for sig, idxs in self._group(plans, accum)]
 
     def collect_total(self, pending, vocab: int) -> np.ndarray:
@@ -479,7 +591,8 @@ class FCTEngine:
                       k: int, *, keywords: Sequence[int] = (), excl=None,
                       host_extra=None, store: Optional[RelationStore] = None,
                       accum: Optional[AccumPolicy] = None,
-                      prune: str = "zero") -> TopkPending:
+                      prune: str = "zero",
+                      stages: Optional[list] = None) -> TopkPending:
         """Async top-k run: dispatch every signature group, keep the
         aggregated histogram DEVICE-RESIDENT (group outputs are summed on
         the device, never transferred), and finalize with the ``fct_topk``
@@ -509,6 +622,7 @@ class FCTEngine:
         histogram in the same layout added to the group total — sessions
         use it for map-only single-relation CNs, which have no routed plans.
         ``store=None`` dispatches the groups through the host-stacked family.
+        ``stages`` as for :meth:`dispatch_plans`.
         """
         if not plans:
             raise ValueError("dispatch_topk needs at least one plan")
@@ -552,7 +666,7 @@ class FCTEngine:
         for pos, g in enumerate(run_list):
             sig, idxs = groups[g]
             lazy = self._dispatch(sig, [plans[i] for i in idxs], mesh,
-                                  reduce_cns=True, store=store)
+                                  reduce_cns=True, store=store, stages=stages)
             total = lazy if total is None else total + lazy
             groups_run += 1
             rest = run_list[pos + 1:]
@@ -622,13 +736,14 @@ class FCTEngine:
     def stats(self) -> dict:
         out = self.cache.stats()
         (batches, cns, shipped, columns, d2h, g_pruned,
-         rows_pruned) = self.metrics.values(
+         rows_pruned, tokens) = self.metrics.values(
             self._c_batches, self._c_cns, self._c_bytes,
             self._c_column_bytes, self._c_d2h, self._c_groups_pruned,
-            self._c_pruned_rows)
+            self._c_pruned_rows, self._c_fct_tokens)
         out.update(batches_run=batches, cns_run=cns, bytes_shipped=shipped,
                    column_bytes_shipped=columns, device_to_host_bytes=d2h,
-                   groups_pruned=g_pruned, pruned_rows=rows_pruned)
+                   groups_pruned=g_pruned, pruned_rows=rows_pruned,
+                   fct_count_tokens=tokens)
         return out
 
 

@@ -148,6 +148,12 @@ class _Lane:
     c_coalesced: object = None           # obs.Counter, gateway.coalesced
     d2h: object = None                   # obs.Counter, gateway.device_to_host_bytes
     c_patched: object = None             # obs.Counter, gateway.histograms_patched
+    # appends and their host time, read from each append's own spans:
+    # gateway.appends, gateway.append_ns (the gateway.append span) and
+    # gateway.delta_plan_ns (plan.cn_plan spans inside session.delta_freq)
+    c_appends: object = None
+    c_append_ns: object = None
+    c_delta_plan_ns: object = None
     # serializes append -> delta -> patch per tenant: delta_freq must run
     # against exactly the epoch its append produced
     append_lock: threading.Lock = dataclasses.field(
@@ -207,7 +213,10 @@ class Gateway:
                     shuffle=lm.counter("gateway.shuffle_bytes"),
                     c_coalesced=lm.counter("gateway.coalesced"),
                     d2h=lm.counter("gateway.device_to_host_bytes"),
-                    c_patched=lm.counter("gateway.histograms_patched"))
+                    c_patched=lm.counter("gateway.histograms_patched"),
+                    c_appends=lm.counter("gateway.appends"),
+                    c_append_ns=lm.counter("gateway.append_ns"),
+                    c_delta_plan_ns=lm.counter("gateway.delta_plan_ns"))
             return lane
 
     @staticmethod
@@ -454,32 +463,68 @@ class Gateway:
         ``data_epoch`` already covers the new rows) are re-inserted
         unpatched — never double-counted.  Appends to one tenant are
         serialized on a per-lane lock; queries keep flowing concurrently.
+
+        Each call records its own trace (``AppendResult.trace``): a
+        ``gateway.append`` root over ``session.append``, the
+        ``session.delta_freq`` of each distinct (keywords, r_max) and
+        ``gateway.patch`` (arg ``entries``); the lane's counters
+        ``gateway.appends``, ``gateway.append_ns`` and
+        ``gateway.delta_plan_ns`` add up the same spans' durations.
         """
         if self._closed:
             raise RuntimeError("gateway is closed")
         lane = self._lane(schema)             # KeyError on unknown name
+        trace = Trace()
         with lane.append_lock:
-            result = lane.session.append(relation, rows)
-            if result.rows_appended == 0:
-                return result
-            if self.config.append_policy == "drop":
-                lane.results.invalidate()
-                return result
-            gen, entries = lane.results.drain()
-            deltas: Dict[tuple, object] = {}
-            policy = lane.session.accum_policy
-            for key, master in entries:
-                if master.data_epoch >= result.data_epoch:
-                    # already computed over the appended data (the query
-                    # raced in between session append and drain): patching
-                    # would double-count the new rows
-                    lane.results.put(key, master, generation=gen)
-                    continue
-                dkey = (key[0], key[1])       # (sorted keywords, r_max)
-                delta = deltas.get(dkey)
-                if delta is None:
-                    delta = deltas[dkey] = lane.session.delta_freq(
-                        result, key[0], key[1])
+            try:
+                with trace.activate(), obs_span("gateway.append",
+                                                relation=relation):
+                    result = self._append(lane, relation, rows)
+            finally:
+                self._count_append(lane, trace)
+        return dataclasses.replace(result, trace=trace)
+
+    @staticmethod
+    def _count_append(lane: _Lane, trace: Trace) -> None:
+        """Add one append's span durations to the lane's counters."""
+        spans = trace.spans()
+        deltas = {s.span_id for s in spans if s.name == "session.delta_freq"}
+        lane.c_appends.inc()
+        lane.c_append_ns.inc(sum(s.dur_ns for s in spans
+                                 if s.name == "gateway.append"))
+        lane.c_delta_plan_ns.inc(sum(
+            s.dur_ns for s in spans
+            if s.name == "plan.cn_plan" and s.parent_id in deltas))
+
+    def _append(self, lane: _Lane, relation: str, rows) -> AppendResult:
+        """The body of :meth:`append`, under the lane's append lock."""
+        result = lane.session.append(relation, rows)
+        if result.rows_appended == 0:
+            return result
+        if self.config.append_policy == "drop":
+            lane.results.invalidate()
+            return result
+        gen, entries = lane.results.drain()
+        stale = []
+        for key, master in entries:
+            if master.data_epoch >= result.data_epoch:
+                # already computed over the appended data (the query raced
+                # in between session append and drain): patching would
+                # double-count the new rows
+                lane.results.put(key, master, generation=gen)
+            else:
+                stale.append((key, master))
+        # one delta per (sorted keywords, r_max): it is invariant to
+        # mode/rho/sample_frac/salt
+        deltas: Dict[tuple, object] = {}
+        for key, _ in stale:
+            if (key[0], key[1]) not in deltas:
+                deltas[key[0], key[1]] = lane.session.delta_freq(
+                    result, key[0], key[1])
+        policy = lane.session.accum_policy
+        with obs_span("gateway.patch", entries=len(stale)):
+            for key, master in stale:
+                delta = deltas[key[0], key[1]]
                 patched = master.all_freqs + delta   # int64: exact
                 if policy.check_wrap:
                     # emulate the tenant's int32 device accumulation on the

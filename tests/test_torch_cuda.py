@@ -1002,3 +1002,24 @@ def test_reduced_model_forward_repeatable(cuda_device):
               f"{threads}: max |diff| "
               f"{(one - cpu[0]).abs().max().item():.4g}, bit-equal "
               f"{torch.equal(one, cpu[0])}")
+
+
+@pytest.mark.parametrize("device_topk", [False, True])
+def test_device_stage_times_on_card(cuda_device, device_topk):
+    """The engine's CUDA events give a query's device time of routing, MR¹
+    and MR², each positive; a batch's shared groups count on its first
+    response alone, and the events return to the engine's pool."""
+    schema, kws = _serving_schema()
+    session = FCTSession(schema, device=cuda_device,
+                         config=SessionConfig(device_topk=device_topk))
+    req = FCTRequest(keywords=tuple(kws), top_k=10, r_max=4)
+    session.query(req)                            # builds and uploads
+    warm = session.query(req)
+    assert warm.finalize == ("device_topk" if device_topk else "host")
+    for key in fct_engine.DEVICE_STAGES:
+        assert warm.timings[key] > 0, key
+    lead, follow = session.query_batch([req, FCTRequest(
+        keywords=tuple(kws[:2]), top_k=5, r_max=4)])
+    assert all(lead.timings[k] > 0 for k in fct_engine.DEVICE_STAGES)
+    assert not set(fct_engine.DEVICE_STAGES) & set(follow.timings)
+    assert len(session.engine._events) >= 4
