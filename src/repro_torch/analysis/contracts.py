@@ -155,9 +155,9 @@ def batched_args(sig: PlanSignature, n_stack: int):
 
 
 def store_args(sig: PlanSignature, n_stack: int, device: torch.device):
-    """Arguments shaped as ``store_group_args``'s: per relation, ``n_stack``
-    device-resident ``[P, S, ...]`` columns plus the stacked host send
-    tables; the fact adds its per-CN key-column indices."""
+    """Arguments shaped as ``store_group_args``'s, all on the device: per
+    relation, ``n_stack`` resident ``[P, S, ...]`` columns plus the stacked
+    send tables; the fact adds its per-CN key-column indices."""
     p = sig.n_devices
 
     def rel(rsig: RelationSig, key_tail: Tuple[int, ...]) -> Dict:
@@ -166,11 +166,13 @@ def store_args(sig: PlanSignature, n_stack: int, device: torch.device):
         keys = torch.zeros((p, rsig.rows) + key_tail, dtype=torch.int32,
                            device=device)
         return {"text": [text] * n_stack, "keys": [keys] * n_stack,
-                "send": _send_table(n_stack, p, rsig)}
+                "send": torch.from_numpy(_send_table(n_stack, p,
+                                                     rsig)).to(device)}
 
     fact = rel(sig.fact, (sig.fact.key_width,))
-    fact["cols"] = np.tile(np.arange(sig.m, dtype=np.int32)
-                           % sig.fact.key_width, (n_stack, 1))
+    fact["cols"] = torch.from_numpy(np.tile(
+        np.arange(sig.m, dtype=np.int32) % sig.fact.key_width,
+        (n_stack, 1))).to(device)
     return fact, [rel(r, ()) for r in sig.dims]
 
 

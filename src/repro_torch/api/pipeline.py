@@ -13,11 +13,11 @@ query k proceeds while the planner plans k+1 (numpy, GIL mostly held) and
 the finalizer blocks on k-1's transfer (GIL released).  Every stage uses the
 same stream, so the device runs queries in dispatch order and no tensor
 crosses streams.  The dispatcher never waits on the device itself, but the
-store uploads and send tables it ships are pageable host memory, whose
-copies wait for the stream: how much a burst overlaps is measured, not
-promised.  Each query runs the same deterministic summed-output programs as
-``query()`` (callers that want cross-query stacked dispatches use
-``query_batch``, whose composition they control).
+store uploads and a new plan's send tables it ships are pageable host
+memory, whose copies wait for the stream: how much a burst overlaps is
+measured, not promised.  Each query runs the same deterministic
+summed-output programs as ``query()`` (callers that want cross-query
+stacked dispatches use ``query_batch``, whose composition they control).
 
 Because every stage is a single thread, futures resolve in submission order;
 a request that fails during planning still flows through the downstream

@@ -11,9 +11,11 @@ with its program cache) and memoizes everything that repeats across queries:
   * built programs, via the engine's shape-bucketed LRU cache,
   * device-resident tuple-set columns, via the session's RelationStore: the
     big ``text``/``keys`` arrays are uploaded to the device once per tuple
-    set, so warm dispatches ship only kilobyte-sized routing tables
-    (``store_uploads``/``store_hits`` counters; ``invalidate()`` drops the
-    store and the derived host caches after a data mutation).
+    set (``store_uploads``/``store_hits`` counters; ``invalidate()`` drops
+    the store and the derived host caches after a data mutation),
+  * each cached plan's routing tables on the device, uploaded at its first
+    dispatch and dropped with the plan, so warm dispatches ship nothing
+    (``send_uploads``/``send_hits`` counters).
 
 Three execution paths:
 
@@ -74,7 +76,7 @@ _ENGINE_COUNTERS = ("hits", "misses", "traces", "evictions",
                     "column_bytes_shipped", "store_uploads", "store_hits",
                     "store_upload_bytes", "store_chunk_assembles",
                     "device_to_host_bytes", "groups_pruned", "pruned_rows",
-                    "fct_count_tokens")
+                    "fct_count_tokens", "send_uploads", "send_hits")
 
 
 def _cn_includes(cn: StarCN, role: str, dim_index: int) -> bool:
@@ -620,8 +622,9 @@ class FCTSession:
                 # relation columns come from the session's device-resident
                 # store: the first dispatch over a tuple set uploads its
                 # columns, every later one — warm repeats, pipelined
-                # submits, multi-query batches of ANY composition — ships
-                # only send tables and key-column indices.  Engine / store
+                # submits, multi-query batches of ANY composition — reuses
+                # them, and a plan's send tables and key-column indices go
+                # up at its first dispatch only.  Engine / store
                 # spans (dispatch_group, store.upload) land on the batch
                 # leader's trace.
                 with maybe_activate(planned[0].trace):

@@ -14,8 +14,12 @@ device-resident :class:`repro_torch.runtime.store.RelationStore`) — and the pe
 into the plan; the per-CN baseline (``core.fct.run_cn_plan``) materializes
 them on demand through the
 ``RelationRoute.text`` / ``.keys`` properties, while the engine's store path
-uploads each tuple-set relation to the device mesh once per session and
-ships only the kilobyte-sized ``send`` tables per dispatch.
+uploads each tuple-set relation to the device mesh once per session.  The
+``send`` tables are no small payload (at P 1 a fact table holds one slot per
+routed tuple, millions at SF1), so the store path uploads each once too, at
+the plan's first dispatch, and keeps the device copy on the route
+(``RelationRoute.device_tables``): a memoized plan's later dispatches ship
+nothing.
 
 Replication accounting: a dimension row needed by several tasks on the SAME
 device is sent once (paper Corollary 2, "data filtering"), so the measured
@@ -177,14 +181,24 @@ class RelationRef:
 @dataclasses.dataclass
 class RelationRoute:
     """Routing descriptor for one relation of one CN: a store handle
-    (:class:`RelationRef`) plus the static per-CN send table — the only
-    per-dispatch payload on the store path.  ``text``/``keys`` materialize
-    the sharded host arrays on demand (the per-CN baseline path)."""
+    (:class:`RelationRef`) plus the static per-CN send table.
+    ``text``/``keys`` materialize the sharded host arrays on demand (the
+    per-CN baseline path).
+
+    ``device_tables`` holds the store path's device copies of ``send``
+    (padded to a signature's ``cap``) and of ``key_cols``, filled at the
+    route's first store-path dispatch (``runtime/store.py``).  They live as
+    long as the route, so as long as the plan that holds it: a plan the
+    session drops takes its tables with it."""
 
     ref: RelationRef
     send: np.ndarray     # int32 [P, P, C]   local row idx to send, -1 pad
     sent_rows: int       # total routed rows (shuffle volume, rows)
     key_cols: Optional[Tuple[int, ...]] = None  # fact: included dim ids
+    #: (device, cap) -> send padded to cap, [1, P, P, cap];
+    #: (device, "key_cols") -> key_cols, [1, m]
+    device_tables: Dict = dataclasses.field(default_factory=dict,
+                                            repr=False, compare=False)
 
     @property
     def text(self) -> np.ndarray:

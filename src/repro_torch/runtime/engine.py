@@ -17,11 +17,13 @@ planning:
      (family, signature, N, mesh, aggregation), so warm queries build
      nothing,
   5. with a session's RelationStore (store.py), gather the tuple-set
-     ``text``/``keys`` columns from DEVICE-RESIDENT tensors: a dispatch
-     ships only the stacked send tables plus the fact key-column indices.
-     Without one, the host pads and stacks the columns and ships them with
-     every dispatch (the reference's pre-store engine, kept as the
-     equivalence baseline and for storeless callers).
+     ``text``/``keys`` columns from DEVICE-RESIDENT tensors, and take each
+     plan's send tables and fact key-column indices from the device copies
+     its routes keep (uploaded at the plan's first dispatch), stacked on the
+     device: a memoized plan's dispatch ships nothing.  Without a store,
+     the host pads and stacks the columns and the send tables and ships
+     them with every dispatch (the reference's pre-store engine, kept as
+     the equivalence baseline and for storeless callers).
 
 Four program families share one body (``_vmapped_cns``): ``fct_store`` and
 ``fct_batched`` (host-stacked) sum the CN axis (single-query ``query``);
@@ -46,15 +48,18 @@ in int64.
 Tracing.  Each dispatched group is an ``engine.dispatch_group`` obs span on
 the active trace (args ``path``, ``family``, ``n_cns``, ``n_devices`` and
 ``built``, true when the dispatch built its program), with children
-``store.group_args`` (store path) or ``engine.host_stack`` (host path),
-``engine.upload`` and ``fct.route`` / ``fct.mr1`` / ``fct.mr2`` (core/fct.py):
-host time, all of it.  Device time per stage comes from four CUDA events a
-group, recorded on the current stream after the uploads and after each
-stage when the caller passes a ``stages`` list, and resolved after the
-collection's wait (:meth:`FCTEngine.device_stage_ms`).  This module also
-installs the obs span hook: while a torch profiler records, every obs span
-opens a ``record_function`` range of its name, so the profile shows the
-program's spans on its own clock beside the kernels they launch.
+``store.group_args`` (store path; args ``send_bytes``, the bytes its
+first-use uploads shipped, and ``send_hits``) or ``engine.host_stack`` (host
+path), ``engine.upload`` (the host path's copies; on the store path it only
+records the first stage event) and ``fct.route`` / ``fct.mr1`` /
+``fct.mr2`` (core/fct.py): host time, all of it.  Device time per stage
+comes from four CUDA events a group, recorded on the current stream after
+the uploads and after each stage when the caller passes a ``stages`` list,
+and resolved after the collection's wait
+(:meth:`FCTEngine.device_stage_ms`).  This module also installs the obs
+span hook: while a torch profiler records, every obs span opens a
+``record_function`` range of its name, so the profile shows the program's
+spans on its own clock beside the kernels they launch.
 """
 from __future__ import annotations
 
@@ -206,29 +211,20 @@ def _build_store_fn(sig: PlanSignature, mesh: VirtualMesh, n_stack: int,
                     reduce_cns: bool = True, reduce_scatter: bool = False):
     """Program over STORE-RESIDENT relation columns for one signature.
 
-    Inputs per relation are ``n_stack`` device tensors (one per CN slot,
-    each ``[P, S, ...]`` from the session's RelationStore) plus the
-    host-shipped stacked send tables, which the program uploads (one
-    ``engine.upload`` span); the fact additionally carries per-CN key-column
-    indices that gather each CN's columns out of the full-width stored key
-    matrix.  ``marks`` as for the host-stacked family.
+    Inputs are ``store_group_args``'s, all on the device: per relation
+    ``n_stack`` column tensors (one per CN slot, each ``[P, S, ...]`` from
+    the session's RelationStore) and the stacked ``[N, P, P, C]`` send
+    tables; the fact additionally carries per-CN key-column indices that
+    gather each CN's columns out of the full-width stored key matrix.  The
+    program uploads nothing: its ``engine.upload`` span (``bytes`` 0) only
+    records the first stage event, so the span tree keeps the host-stacked
+    family's shape.  ``marks`` as for the host-stacked family.
     """
-    device = mesh.device
-
-    def upload(rel, *names):
-        out = dict(rel)
-        for k in names:
-            out[k] = torch.from_numpy(rel[k]).to(device)
-        return out
 
     def program(fact, dims, marks=None):
-        with obs_span("engine.upload") as sp:
-            sp.args["bytes"] = (fact["send"].nbytes + fact["cols"].nbytes
-                                + sum(d["send"].nbytes for d in dims))
-            fact_d = upload(fact, "send", "cols")
-            dims_d = [upload(d, "send") for d in dims]
+        with obs_span("engine.upload", bytes=0):
             _mark(marks)
-        return _vmapped_cns(fact_d, dims_d, sig, reduce_cns, reduce_scatter,
+        return _vmapped_cns(fact, dims, sig, reduce_cns, reduce_scatter,
                             marks)
 
     return program
@@ -355,7 +351,10 @@ class FCTEngine:
     ``batch=False`` dispatches one program per CN (still cached/bucketed);
     ``bucket=False`` keys on exact shapes (still cached/batched).
 
-    ``bytes_shipped`` counts host→device argument bytes per dispatch;
+    ``bytes_shipped`` counts host→device argument bytes per dispatch — on
+    the store path only a plan's first-use send tables and key-column
+    indices, counted as ``send_uploads`` (tables uploaded) beside
+    ``send_hits`` (tables found on the device);
     ``column_bytes_shipped`` is the text/keys portion of that — zero on the
     store path, where columns are device-resident (store uploads are
     accounted by the RelationStore itself); ``device_to_host_bytes`` counts
@@ -390,6 +389,10 @@ class FCTEngine:
         self._c_groups_pruned = self.metrics.counter("engine.groups_pruned")
         self._c_pruned_rows = self.metrics.counter("engine.pruned_rows")
         self._c_fct_tokens = self.metrics.counter("engine.fct_count_tokens")
+        # store path: send tables uploaded at a plan's first dispatch, and
+        # those later dispatches found on the device
+        self._c_send_uploads = self.metrics.counter("engine.send_uploads")
+        self._c_send_hits = self.metrics.counter("engine.send_hits")
         # recycled CUDA timing events of the device-stage timers
         self._events: collections.deque = collections.deque()
 
@@ -441,10 +444,11 @@ class FCTEngine:
         multiple of CN_BUCKET_MIN (zero-contribution null-plan padding), so
         batch compositions share programs; the summed family keeps exact N.
 
-        With a ``store``, relation columns are gathered from device-resident
-        tensors and only the send tables and fact key-column indices are
-        shipped.  Without one, the host pads and stacks every column
-        (``stack_group``) and the program uploads them.
+        With a ``store``, relation columns, send tables and fact key-column
+        indices are all device-resident, and only a plan's first dispatch
+        ships its tables (``store_group_args``).  Without one, the host pads
+        and stacks every column (``stack_group``) and the program uploads
+        them.
 
         ``stages`` (a list) asks for the group's device-stage events on
         CUDA: four are recorded and appended to it as one entry.
@@ -461,16 +465,19 @@ class FCTEngine:
             if store.mesh != mesh:
                 raise ValueError("the store is bound to another mesh")
             with obs_span("store.group_args", n_stack=n_stack) as ga:
-                (fact, dims), shipped = store_group_args(store, group, sig,
-                                                         n_stack)
-                ga.args["send_bytes"] = shipped
+                args = store_group_args(store, group, sig, n_stack)
+                ga.args["send_bytes"] = args.shipped
+                ga.args["send_hits"] = args.send_hits
+            fact, dims = args.fact, args.dims
             kind = "fct_store" if reduce_cns else "fct_store_percn"
             key = (kind, sig, n_stack, mesh, agg)
             fn, built = self.cache.fetch(
                 key, lambda: _build_store_fn(sig, mesh, n_stack,
                                              reduce_cns=reduce_cns,
                                              reduce_scatter=rs))
-            self._c_bytes.inc(shipped)
+            self._c_bytes.inc(args.shipped)
+            self._c_send_uploads.inc(args.send_uploads)
+            self._c_send_hits.inc(args.send_hits)
         else:
             with obs_span("engine.host_stack", n_stack=n_stack):
                 fact, dims = stack_group(group, sig)
@@ -736,14 +743,16 @@ class FCTEngine:
     def stats(self) -> dict:
         out = self.cache.stats()
         (batches, cns, shipped, columns, d2h, g_pruned,
-         rows_pruned, tokens) = self.metrics.values(
+         rows_pruned, tokens, send_uploads, send_hits) = self.metrics.values(
             self._c_batches, self._c_cns, self._c_bytes,
             self._c_column_bytes, self._c_d2h, self._c_groups_pruned,
-            self._c_pruned_rows, self._c_fct_tokens)
+            self._c_pruned_rows, self._c_fct_tokens, self._c_send_uploads,
+            self._c_send_hits)
         out.update(batches_run=batches, cns_run=cns, bytes_shipped=shipped,
                    column_bytes_shipped=columns, device_to_host_bytes=d2h,
                    groups_pruned=g_pruned, pruned_rows=rows_pruned,
-                   fct_count_tokens=tokens)
+                   fct_count_tokens=tokens, send_uploads=send_uploads,
+                   send_hits=send_hits)
         return out
 
 

@@ -1,9 +1,11 @@
 """Device-resident relation store: tuple-set columns live on the device once.
 
 The paper's MapReduce jobs re-ship every CN's tuple-set relations on every
-query.  Here only the small routing metadata (send tables, key-column
-indices) is shipped per dispatch; the big columns are uploaded ONCE per
-(session, tuple set) and stay in device memory.
+query.  Here the big columns are uploaded ONCE per (session, tuple set) and
+stay in device memory, and each plan's routing tables (send tables,
+key-column indices) are uploaded once per plan and held by its routes
+(:func:`store_group_args`): a memoized plan's later dispatches copy nothing
+from the host.
 
 ``RelationStore`` maps a :class:`repro_torch.core.plan.RelationRef`'s content
 fingerprint to device tensors laid out ``[P, rows_pad, ...]`` (the virtual
@@ -36,7 +38,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.plan import CNPlan, RelationRef
+from repro_torch.core.plan import CNPlan, RelationRef, RelationRoute
 from repro_torch.data.schema import PAD_ID
 from repro_torch.launch.mesh import VirtualMesh
 from repro_torch.obs import default_registry
@@ -82,6 +84,9 @@ class RelationStore:
         # bumped by clear(): an upload that started before an invalidation
         # must not re-insert pre-invalidation columns after it
         self.epoch = 0
+        # one -1 on the device: null CN slots route nothing (null_send)
+        self._minus_one = torch.full((), -1, dtype=torch.int32,
+                                     device=mesh.device)
 
     @property
     def chunk_assembles(self) -> int:
@@ -200,6 +205,13 @@ class RelationStore:
             nbytes=text.numel() * text.element_size()
             + keyc.numel() * keyc.element_size())
 
+    def null_send(self, cap: int) -> torch.Tensor:
+        """An all ``-1`` ``[1, P, P, cap]`` send table on the device, for
+        the null CN slots of a padded group: a view of one cached scalar, so
+        it costs no memory and no copy."""
+        P = self.mesh.size
+        return self._minus_one.expand(1, P, P, cap)
+
     # -- lifecycle / introspection ------------------------------------------
 
     def clear(self) -> int:
@@ -241,46 +253,87 @@ def _pad_send(send: np.ndarray, cap: int) -> np.ndarray:
                   constant_values=-1)
 
 
-def _null_send(n_devices: int, cap: int) -> np.ndarray:
-    return np.full((n_devices, n_devices, cap), -1, np.int32)
+def _resident(route: RelationRoute, key: Tuple, host) -> Tuple[torch.Tensor,
+                                                               int]:
+    """``route.device_tables[key]`` (``key[0]`` is the device) and the
+    bytes this call shipped: on the route's first use at ``key`` the host
+    array ``host()`` is uploaded, with a leading CN axis of 1, and kept;
+    later uses ship nothing."""
+    table = route.device_tables.get(key)
+    if table is not None:
+        return table, 0
+    table = torch.from_numpy(host()[None]).to(key[0])
+    # a concurrent dispatch of the same plan may have stored one first
+    return (route.device_tables.setdefault(key, table),
+            table.numel() * table.element_size())
+
+
+def _cn_axis(tables: List[torch.Tensor]) -> torch.Tensor:
+    """``[1, ...]`` device tables joined along the CN axis: one device-side
+    copy, none for a group of one."""
+    return tables[0] if len(tables) == 1 else torch.cat(tables)
+
+
+class GroupArgs(NamedTuple):
+    """One signature group's store-path arguments and what building them
+    shipped: ``shipped`` host->device bytes, ``send_uploads`` send tables
+    uploaded, ``send_hits`` send tables found on the device."""
+
+    fact: Dict
+    dims: List[Dict]
+    shipped: int
+    send_uploads: int
+    send_hits: int
 
 
 def store_group_args(store: RelationStore, plans: Sequence[CNPlan],
-                     sig: PlanSignature, n_stack: int):
+                     sig: PlanSignature, n_stack: int) -> GroupArgs:
     """Arguments for one stacked signature group on the store path.
 
-    Returns ``((fact, dims), shipped_bytes)`` where ``fact`` / each dim slot
-    is ``{"text": [N device tensors], "keys": [N device tensors],
-    "send": [N, P, P, C] host int32, ...}`` — the only HOST payload is the
-    stacked send tables plus the fact's key-column indices
-    (``shipped_bytes`` counts exactly that; the program uploads them).
-    Slots past ``len(plans)`` are null plans: they alias the first plan's
-    store-resident columns and route nothing (all ``-1`` send), contributing
-    exactly zero to every histogram.
+    ``fact`` / each dim slot is ``{"text": [N device tensors], "keys": [N
+    device tensors], "send": [N, P, P, C] device int32}``, and the fact adds
+    ``"cols"``, ``[N, m]`` device int32 key-column indices.  Every tensor is
+    resident: columns in the store, each route's send table (padded to the
+    signature's ``cap``) and key-column indices on the route itself, uploaded
+    at its first store-path dispatch; the group's tables are joined on the
+    device (:func:`_cn_axis`).  So a plan dispatched again ships 0 bytes
+    (``shipped`` counts the first uses).  Slots past ``len(plans)`` are
+    null plans: they alias the first plan's store-resident columns and key
+    columns and route nothing (:meth:`RelationStore.null_send`),
+    contributing exactly zero to every histogram.
     """
     pad = n_stack - len(plans)
+    dev = store.mesh.device
+    shipped = uploads = 0
 
-    def one_relation(refs_sends: List[Tuple[RelationRef, np.ndarray]],
-                     rsig: RelationSig) -> Dict:
-        cols = [store.columns(ref, rsig.rows, rsig.text_len)
-                for ref, _ in refs_sends]
-        sends = [_pad_send(send, rsig.cap) for _, send in refs_sends]
+    def one_relation(routes: List[RelationRoute], rsig: RelationSig) -> Dict:
+        nonlocal shipped, uploads
+        cols = [store.columns(r.ref, rsig.rows, rsig.text_len)
+                for r in routes]
+        sends = []
+        for r in routes:
+            table, nbytes = _resident(r, (dev, rsig.cap),
+                                      lambda r=r: _pad_send(r.send, rsig.cap))
+            sends.append(table)
+            shipped += nbytes
+            uploads += int(nbytes > 0)
         if pad:
             cols.extend([cols[0]] * pad)
-            P_dev = sends[0].shape[0]
-            sends.extend([_null_send(P_dev, rsig.cap)] * pad)
+            sends.extend([store.null_send(rsig.cap)] * pad)
         return {"text": [c.text for c in cols],
                 "keys": [c.keys for c in cols],
-                "send": np.stack(sends)}
+                "send": _cn_axis(sends)}
 
-    fact = one_relation([(p.fact.ref, p.fact.send) for p in plans], sig.fact)
-    key_cols = [np.asarray(p.fact.key_cols, np.int32) for p in plans]
-    if pad:
-        key_cols.extend([key_cols[0]] * pad)
-    fact["cols"] = np.stack(key_cols)
-    dims = [one_relation([(p.dims[p.included[j]].ref,
-                           p.dims[p.included[j]].send) for p in plans], rsig)
+    fact = one_relation([p.fact for p in plans], sig.fact)
+    key_cols = []
+    for p in plans:
+        table, nbytes = _resident(
+            p.fact, (dev, "key_cols"),
+            lambda p=p: np.asarray(p.fact.key_cols, np.int32))
+        key_cols.append(table)
+        shipped += nbytes
+    fact["cols"] = _cn_axis(key_cols + [key_cols[0]] * pad)
+    dims = [one_relation([p.dims[p.included[j]] for p in plans], rsig)
             for j, rsig in enumerate(sig.dims)]
-    shipped = fact["send"].nbytes + fact["cols"].nbytes + sum(
-        d["send"].nbytes for d in dims)
-    return (fact, dims), shipped
+    n_tables = len(plans) * (1 + len(sig.dims))
+    return GroupArgs(fact, dims, shipped, uploads, n_tables - uploads)

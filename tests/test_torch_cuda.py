@@ -23,7 +23,10 @@ the CPU's answer: ``torch.topk`` promises no order among equal values, the
 port's stable sort does), the store's on-device ``_assemble`` bit-equal to
 a direct upload, ``submit`` from three threads with the launch and path
 counts exact, and a gateway burst that coalesces and then hits its cache,
-every answer equal to ``fct_star``.  The runtime contract checker
+every answer equal to ``fct_star``.  A warm store-path query, under the
+profiler, copies nothing above 4 KB to the card (its plans' send tables are
+resident) and answers as the host-stacked family does.  The runtime
+contract checker
 (``repro_torch.analysis.contracts``) over every FCT program family at P = 1
 and 8 under both policies, through the kernel.
 
@@ -1023,3 +1026,46 @@ def test_device_stage_times_on_card(cuda_device, device_topk):
     assert all(lead.timings[k] > 0 for k in fct_engine.DEVICE_STAGES)
     assert not set(fct_engine.DEVICE_STAGES) & set(follow.timings)
     assert len(session.engine._events) >= 4
+
+
+def _htod_copies(prof, path):
+    """``(name, bytes)`` of every host-to-device copy in a profile, read
+    from its Chrome trace (the only place the profiler gives the size)."""
+    import json
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e["name"], int(e["args"]["bytes"])) for e in events
+            if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]]
+
+
+@pytest.mark.parametrize("P", [1, 8])
+def test_warm_store_query_copies_nothing_from_the_host(cuda_device, tmp_path,
+                                                       P):
+    """A memoized plan's send tables stay on the card: under the profiler
+    the cold query copies its columns and tables to the card, the warm
+    query no host-to-device copy above 4 KB, and the warm answer equals the
+    host-stacked family's (plus the map-only CNs) and ``fct_star``."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.schema import PAD_ID
+    schema, kws = _serving_schema()
+    session = FCTSession(schema, device=cuda_device, n_workers=P)
+    req = FCTRequest(keywords=tuple(kws), top_k=10, r_max=4)
+    copies = {}
+    for name in ("cold", "warm"):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            resp = session.query(req)
+            torch.cuda.synchronize()
+        copies[name] = _htod_copies(prof, tmp_path / f"{name}.json")
+    assert max(b for _, b in copies["cold"]) > 4096
+    assert [c for c in copies["warm"] if c[1] > 4096] == []
+    assert resp.engine_stats["bytes_shipped"] == 0
+    assert resp.engine_stats["send_uploads"] == 0
+    assert resp.engine_stats["send_hits"] > 0
+    planned = session._plan(req)
+    host = fct_engine.FCTEngine().run_plans(planned.plans, session.mesh)
+    want = planned.host_freq + host
+    want[PAD_ID] = 0
+    np.testing.assert_array_equal(resp.all_freqs, want)
+    np.testing.assert_array_equal(resp.all_freqs, fct_star(schema, kws, 4))

@@ -5,7 +5,8 @@ and append paths (``repro_torch.obs`` fed by ``runtime/engine.py``,
 * each ``engine.dispatch_group`` of a warm query holds ``store.group_args``
   (or ``engine.host_stack``), ``engine.upload`` and ``fct.route`` /
   ``fct.mr1`` / ``fct.mr2``, each inside its parent's interval, and says
-  whether it built its program;
+  whether it built its program; on the store path the cold query's
+  ``store.group_args`` ship send tables and the warm query's ship none;
 * a cold ``plan`` holds ``plan.tuple_sets``, ``plan.cns``, ``plan.cn_plan``
   and ``plan.map_only``; a plan-cache hit holds none;
 * an append's trace (``AppendResult.trace``) holds ``session.append``,
@@ -42,9 +43,14 @@ ADDED_AFTER = {"dispatch", "collect", "finalize"}
 
 
 def _session(**config):
+    # an engine of its own: whether the cold query builds its programs
+    # must not depend on what earlier tests left in the process-wide cache
+    m = MetricsRegistry()
     return FCTSession(schema_from_reference(make_schema(5, m=2,
                                                         fact_rows=24)),
-                      device="cpu", metrics=MetricsRegistry(),
+                      device="cpu", metrics=m,
+                      engine=engine_mod.FCTEngine(cache=ExecutableCache(),
+                                                  metrics=m),
                       config=SessionConfig(**config))
 
 
@@ -87,13 +93,20 @@ def test_warm_query_splits_each_dispatch_group():
     assert not any(g.args["built"] for g in groups)
     assert any(g.args["built"] for g in cold.trace.spans()
                if g.name == "engine.dispatch_group")
-    for s in spans:
-        if s.name == "store.group_args":
-            assert s.args["send_bytes"] > 0 and s.args["n_stack"] >= 1
-        if s.name == "engine.upload":
-            assert s.args["bytes"] > 0
-    # cold uploads the columns inside store.group_args
+    # the cold query's groups ship their send tables, inside
+    # store.group_args; the warm query's find them on the device and ship 0
     cold_spans = cold.trace.spans()
+    for trace_spans, warm_query in ((cold_spans, False), (spans, True)):
+        args = [s.args for s in trace_spans if s.name == "store.group_args"]
+        assert args and all(a["n_stack"] >= 1 for a in args)
+        if warm_query:
+            assert all(a["send_bytes"] == 0 and a["send_hits"] >= 1
+                       for a in args)
+        else:
+            assert all(a["send_bytes"] > 0 for a in args)
+        assert all(s.args["bytes"] == 0 for s in trace_spans
+                   if s.name == "engine.upload")
+    # cold uploads the columns inside store.group_args
     ids = {s.span_id: s for s in cold_spans}
     uploads = [s for s in cold_spans if s.name == "store.upload"]
     assert uploads and all(ids[u.parent_id].name == "store.group_args"
