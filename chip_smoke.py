@@ -117,8 +117,11 @@ Phases, one line each, then a kernels line and a last line with the device:
                 temporary directory (its size, save and restore times),
                 each bit-equal to that CN's ``run_plans_individual`` row;
                 one host-stacked int64 ``run_plans``.  Then P 8 on the same
-                generator at 0.05 of SF1's cardinalities (cut: every P 8
-                plan at SF1 costs tens of seconds of host planning): modes
+                generator at 0.05 of SF1's cardinalities (cut: on the host of
+                an H100 machine one cold P 8 plan of the planted triple at
+                SF1, Zipf z 1 keys, takes 26.5 s in uniform mode and 29.0 s
+                in adaptive mode, against 20.2 s at P 1, and this phase
+                plans four modes on three engines): modes
                 uniform, skew, round_robin and adaptive (rho 4) by
                 ``query`` and ``query_batch`` through sessions on
                 ``FCTEngine()``, ``FCTEngine(reduce_scatter=False)`` and

@@ -76,7 +76,8 @@ _ENGINE_COUNTERS = ("hits", "misses", "traces", "evictions",
                     "column_bytes_shipped", "store_uploads", "store_hits",
                     "store_upload_bytes", "store_chunk_assembles",
                     "device_to_host_bytes", "groups_pruned", "pruned_rows",
-                    "fct_count_tokens", "send_uploads", "send_hits")
+                    "fct_count_tokens", "send_uploads", "send_hits",
+                    "route_slots", "route_rows")
 
 
 def _cn_includes(cn: StarCN, role: str, dim_index: int) -> bool:
@@ -113,12 +114,25 @@ def _delta_tuple_sets(ts: TupleSets, role: str, dim_index: int,
 
 def _traced_cn_plan(schema: StarSchema, ts: TupleSets, cn: StarCN,
                     n_devices: int, **knobs) -> Optional[CNPlan]:
-    """``build_cn_plan`` inside a ``plan.cn_plan`` span (args ``n_rel``,
-    ``fact_rows``, ``shuffle_rows``; 0 rows for a single-relation CN)."""
+    """``build_cn_plan`` inside a ``plan.cn_plan`` span.  Args: ``n_rel``,
+    ``fact_rows``, ``shuffle_rows``, and the shuffle's shape: ``rho``,
+    ``tasks``, ``row_imbalance`` (achieved max/mean fact rows a worker),
+    ``dim_rows`` (the dimensions' tuple-set rows) and ``dim_sent`` (the
+    dimension rows sent, replicas included).  A single-relation CN has no
+    plan and records only ``n_rel`` and 0 rows."""
     with obs_span("plan.cn_plan", n_rel=cn.n_relations()) as sp:
         plan = build_cn_plan(schema, ts, cn, n_devices, **knobs)
-        sp.args["fact_rows"] = 0 if plan is None else plan.fact.ref.n_rows
-        sp.args["shuffle_rows"] = 0 if plan is None else plan.shuffle_rows
+        if plan is None:
+            sp.args.update(fact_rows=0, shuffle_rows=0)
+        else:
+            dims = [plan.dims[i] for i in plan.included]
+            sp.args.update(
+                fact_rows=plan.fact.ref.n_rows,
+                shuffle_rows=plan.shuffle_rows, rho=plan.rho,
+                tasks=len(plan.schedule.task_to_device),
+                row_imbalance=plan.row_imbalance,
+                dim_rows=sum(d.ref.n_rows for d in dims),
+                dim_sent=sum(d.sent_rows for d in dims))
     return plan
 
 

@@ -43,6 +43,7 @@ from repro_torch.core.skew import (Schedule, choose_rho, estimate_task_costs,
                              row_imbalance)
 from repro_torch.core.star import cn_volume_mass
 from repro_torch.data.schema import PAD_ID, StarSchema
+from repro_torch.obs import span as obs_span
 
 
 def _shard_rows(arr: np.ndarray, P: int, pad_value: int) -> np.ndarray:
@@ -327,23 +328,22 @@ def build_cn_plan(schema: StarSchema, ts: TupleSets, cn: StarCN,
                             task_cost=np.bincount(fact_tasks, minlength=T)
                             .astype(np.float64))
     else:
-        nums = []
-        probes = []
-        for p, i in enumerate(inc):
-            dom = schema.key_domain(i)
-            keys = schema.dim_keys(i)[dim_idx[i]]
-            num = np.bincount(keys, minlength=dom)
-            nums.append(num)
-            probes.append(num[fact_key_cols[p]].astype(np.float64))
-        cost = estimate_task_costs(grid, fact_tasks, probes,
-                                   [dim_buckets[i] for i in inc],
-                                   sample_frac=sample_frac, seed=salt)
-        if mode in ("skew", "adaptive"):
-            schedule = lpt_schedule(cost, P, prune_empty=empty)
-        elif mode == "round_robin":
-            schedule = round_robin_schedule(cost, P)
-        else:
-            raise ValueError(mode)
+        # the cost estimate and the packing, timed on the active trace
+        with obs_span("plan.schedule", mode=mode, tasks=T, devices=P):
+            probes = []
+            for p, i in enumerate(inc):
+                keys = schema.dim_keys(i)[dim_idx[i]]
+                num = np.bincount(keys, minlength=schema.key_domain(i))
+                probes.append(num[fact_key_cols[p]].astype(np.float64))
+            cost = estimate_task_costs(grid, fact_tasks, probes,
+                                       [dim_buckets[i] for i in inc],
+                                       sample_frac=sample_frac, seed=salt)
+            if mode in ("skew", "adaptive"):
+                schedule = lpt_schedule(cost, P, prune_empty=empty)
+            elif mode == "round_robin":
+                schedule = round_robin_schedule(cost, P)
+            else:
+                raise ValueError(mode)
 
     t2d = schedule.task_to_device
 

@@ -143,6 +143,13 @@ def _mr2_token_slots(sig: PlanSignature, n_stack: int) -> int:
                                  for r in (sig.fact,) + tuple(sig.dims))
 
 
+def _route_slots(sig: PlanSignature, n_stack: int) -> int:
+    """Gather slots one group's routing launches: ``n_stack * P * P * cap``
+    of every routed relation, the caps as the signature buckets them."""
+    P = sig.n_devices
+    return n_stack * P * P * sum(r.cap for r in (sig.fact,) + tuple(sig.dims))
+
+
 def _vmapped_cns(fact, dims, sig: PlanSignature, reduce_cns: bool,
                  reduce_scatter: bool, marks=None) -> torch.Tensor:
     """Body shared by every histogram family: MR¹+MR² over the leading CN
@@ -362,7 +369,9 @@ class FCTEngine:
     groups (and their routed fact rows) the top-k family skipped;
     ``fct_count_tokens`` counts the token slots MR² hands to
     ``weighted_histogram`` (rows × ``text_len``, padding included), from
-    the launched shapes.
+    the launched shapes; ``route_slots`` the gather slots the routing
+    launches (``N·P·P·cap`` of every relation, as bucketed) beside
+    ``route_rows``, the rows the group's plans send (``shuffle_rows``).
 
     ``reduce_scatter=True`` (default) returns multi-worker aggregates in the
     reduce-scatter layout (vocab padded to a multiple of P, each worker
@@ -389,6 +398,8 @@ class FCTEngine:
         self._c_groups_pruned = self.metrics.counter("engine.groups_pruned")
         self._c_pruned_rows = self.metrics.counter("engine.pruned_rows")
         self._c_fct_tokens = self.metrics.counter("engine.fct_count_tokens")
+        self._c_route_slots = self.metrics.counter("engine.route_slots")
+        self._c_route_rows = self.metrics.counter("engine.route_rows")
         # store path: send tables uploaded at a plan's first dispatch, and
         # those later dispatches found on the device
         self._c_send_uploads = self.metrics.counter("engine.send_uploads")
@@ -506,6 +517,8 @@ class FCTEngine:
         self._c_batches.inc()
         self._c_cns.inc(len(group))
         self._c_fct_tokens.inc(_mr2_token_slots(sig, n_stack))
+        self._c_route_slots.inc(_route_slots(sig, n_stack))
+        self._c_route_rows.inc(sum(p.shuffle_rows for p in group))
         return out
 
     def device_stage_ms(self, stages: list) -> Dict[str, float]:
@@ -743,16 +756,18 @@ class FCTEngine:
     def stats(self) -> dict:
         out = self.cache.stats()
         (batches, cns, shipped, columns, d2h, g_pruned,
-         rows_pruned, tokens, send_uploads, send_hits) = self.metrics.values(
+         rows_pruned, tokens, send_uploads, send_hits, route_slots,
+         route_rows) = self.metrics.values(
             self._c_batches, self._c_cns, self._c_bytes,
             self._c_column_bytes, self._c_d2h, self._c_groups_pruned,
             self._c_pruned_rows, self._c_fct_tokens, self._c_send_uploads,
-            self._c_send_hits)
+            self._c_send_hits, self._c_route_slots, self._c_route_rows)
         out.update(batches_run=batches, cns_run=cns, bytes_shipped=shipped,
                    column_bytes_shipped=columns, device_to_host_bytes=d2h,
                    groups_pruned=g_pruned, pruned_rows=rows_pruned,
                    fct_count_tokens=tokens, send_uploads=send_uploads,
-                   send_hits=send_hits)
+                   send_hits=send_hits, route_slots=route_slots,
+                   route_rows=route_rows)
         return out
 
 
