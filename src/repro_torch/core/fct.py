@@ -119,13 +119,32 @@ def _route(texts: Sequence[torch.Tensor], keys: Sequence[torch.Tensor],
             rkeys.view((N, P, P * C) + tuple(k_tail)), mask)
 
 
+def _cn_joined(tables):
+    """A CN batch's tables as one ``[N, ...]`` tensor: a stacked tensor as
+    it is, a list of ``[1, ...]`` tables (the store path's per-plan resident
+    ones) joined along the CN axis on the device, a list of one as that
+    table."""
+    if isinstance(tables, torch.Tensor) or tables is None:
+        return tables
+    return tables[0] if len(tables) == 1 else torch.cat(tables)
+
+
+def _cn_extent(send) -> Tuple[int, int]:
+    """(CNs, routed row slots ``N * P * P * C``) of a batch's send tables,
+    stacked or as a list."""
+    tables = [send] if isinstance(send, torch.Tensor) else send
+    return (sum(t.shape[0] for t in tables), sum(t.numel() for t in tables))
+
+
 def _route_cn(fact: Dict, dims: Sequence[Dict]):
     """MR¹ shuffle stage: route every relation of a CN batch per its send
-    tables.  ``fact["cols"]`` (optional) names each CN's columns of the
-    full-width store-resident fact key matrix."""
-    routed_fact = _route(fact["text"], fact["keys"], fact["send"],
-                         fact.get("cols"))
-    routed_dims = [_route(d["text"], d["keys"], d["send"]) for d in dims]
+    tables, joined first if they come as a list (:func:`_cn_joined`).
+    ``fact["cols"]`` (optional) names each CN's columns of the full-width
+    store-resident fact key matrix."""
+    routed_fact = _route(fact["text"], fact["keys"], _cn_joined(fact["send"]),
+                         _cn_joined(fact.get("cols")))
+    routed_dims = [_route(d["text"], d["keys"], _cn_joined(d["send"]))
+                   for d in dims]
     return routed_fact, routed_dims
 
 
@@ -174,6 +193,22 @@ def _mark(marks) -> None:
         marks.record()
 
 
+def _mr2_histograms(routed_fact, routed_dims, vol_fact, dim_vols,
+                    vocab: int) -> torch.Tensor:
+    """MR² on routed relations and their volumes: one weighted histogram
+    launch per relation, the workers flattened into the row axis, summed
+    -> ``[N, vocab]``."""
+    ftext = routed_fact[0]
+    N, L = ftext.shape[0], ftext.shape[-1]
+    hist = weighted_histogram(ftext.reshape(N, -1, L),
+                              vol_fact.reshape(N, -1), vocab)
+    for (dtext, _, _), w in zip(routed_dims, dim_vols):
+        hist = hist + weighted_histogram(
+            dtext.reshape(N, -1, dtext.shape[-1]),
+            w.to(hist.dtype).reshape(N, -1), vocab)
+    return hist
+
+
 def _device_fct_local(fact: Dict, dims: Sequence[Dict], *,
                       domains: Tuple[int, ...], vocab: int,
                       accum: AccumPolicy = INT32_CHECKED,
@@ -189,7 +224,7 @@ def _device_fct_local(fact: Dict, dims: Sequence[Dict], *,
     engine's, on CUDA) gets ``record()`` at the end of each stage, which
     puts a timing event on the current stream: the device time of each
     stage is the distance between two such events."""
-    n_cns, rows = fact["send"].shape[0], fact["send"].numel()
+    n_cns, rows = _cn_extent(fact["send"])
     with obs_span("fct.route", n_cns=n_cns, rows=rows):
         routed_fact, routed_dims = _route_cn(fact, dims)
         _mark(marks)
@@ -198,15 +233,8 @@ def _device_fct_local(fact: Dict, dims: Sequence[Dict], *,
                                           accum)
         _mark(marks)
     with obs_span("fct.mr2", n_cns=n_cns, rows=rows):
-        ftext = routed_fact[0]
-        N, L = ftext.shape[0], ftext.shape[-1]
-        # --- MR2: weighted histograms, workers flattened into the row axis
-        hist = weighted_histogram(ftext.reshape(N, -1, L),
-                                  vol_fact.reshape(N, -1), vocab)
-        for (dtext, _, _), w in zip(routed_dims, dim_vols):
-            hist = hist + weighted_histogram(
-                dtext.reshape(N, -1, dtext.shape[-1]),
-                w.to(hist.dtype).reshape(N, -1), vocab)
+        hist = _mr2_histograms(routed_fact, routed_dims, vol_fact, dim_vols,
+                               vocab)
         _mark(marks)
     return hist
 

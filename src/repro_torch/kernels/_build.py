@@ -14,10 +14,14 @@ on a non-zero return and counts the launch in ``launches``, which moves
 nowhere else.  Launch counts and the ops' path counts move through
 :func:`bump` and :func:`reset_counts` under one process-wide lock, so they
 stay exact when several threads dispatch (the serving gateway's flush pool,
-the submit pipeline).
+the submit pipeline).  Inside :func:`held_bumps` a thread's bumps are held
+back instead: a CUDA graph capture launches nothing, so the engine holds
+what its capture would count and adds it (:func:`add_bumps`) at each
+replay, which runs the captured launches.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -27,7 +31,8 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Callable, Dict, Iterable, Optional, Sequence
+from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
+                    Sequence, Tuple)
 
 import torch
 
@@ -40,12 +45,36 @@ PTR, I32, I64, F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                       ctypes.c_float)
 
 _COUNT_LOCK = threading.Lock()
+_HELD = threading.local()
 
 
 def bump(counts: Dict[str, int], key: str) -> None:
-    """``counts[key] += 1``, exact under threads."""
+    """``counts[key] += 1``, exact under threads; inside :func:`held_bumps`
+    the bump is held in that block's list instead."""
+    held = getattr(_HELD, "bumps", None)
+    if held is not None:
+        held.append((counts, key))
+        return
     with _COUNT_LOCK:
         counts[key] += 1
+
+
+@contextlib.contextmanager
+def held_bumps() -> Iterator[List[Tuple[Dict[str, int], str]]]:
+    """Holds back this thread's bumps inside the block and yields them as
+    ``(counts, key)`` pairs, for :func:`add_bumps` to apply later."""
+    outer = getattr(_HELD, "bumps", None)
+    _HELD.bumps = held = []
+    try:
+        yield held
+    finally:
+        _HELD.bumps = outer
+
+
+def add_bumps(bumps: Iterable[Tuple[Dict[str, int], str]]) -> None:
+    """Applies bumps held by :func:`held_bumps`, each once."""
+    for counts, key in bumps:
+        bump(counts, key)
 
 
 def reset_counts(counts: Dict[str, int]) -> None:

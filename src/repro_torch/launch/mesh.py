@@ -11,7 +11,10 @@ Every movement across the virtual workers goes through one of the named
 functions below (:func:`all_to_all`, :func:`psum`, :func:`psum_scatter`,
 :func:`all_gather`), so a :func:`collective_census` can count them, as the
 reference's contract checker counts the collectives of a traced program.
-Outside a census they cost one thread-local lookup.
+Outside a census they cost one thread-local lookup.  A program replayed
+from a CUDA graph calls none of them: the engine counts its collectives at
+capture, in a census of its own, and adds them at each replay
+(:func:`add_to_census`).
 """
 from __future__ import annotations
 
@@ -92,6 +95,15 @@ def _tally(name: str) -> None:
     counts = getattr(_CENSUS, "counts", None)
     if counts is not None:
         counts[name] += 1
+
+
+def add_to_census(counts: Dict[str, int]) -> None:
+    """Adds collectives counted elsewhere to this thread's census, if one is
+    open."""
+    active = getattr(_CENSUS, "counts", None)
+    if active is not None:
+        for name, n in counts.items():
+            active[name] += n
 
 
 def all_to_all(send: torch.Tensor) -> torch.Tensor:

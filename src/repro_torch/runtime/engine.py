@@ -23,7 +23,11 @@ planning:
      device: a memoized plan's dispatch ships nothing.  Without a store,
      the host pads and stacks the columns and the send tables and ships
      them with every dispatch (the reference's pre-store engine, kept as
-     the equivalence baseline and for storeless callers).
+     the equivalence baseline and for storeless callers),
+  6. on CUDA, replay a store-path group whose inputs are the very tensors
+     of an earlier dispatch from three CUDA graphs — routing, MR¹, MR² —
+     captured at its second dispatch (graphs.py): the same kernels, three
+     launches from the host.
 
 Four program families share one body (``_vmapped_cns``): ``fct_store`` and
 ``fct_batched`` (host-stacked) sum the CN axis (single-query ``query``);
@@ -37,7 +41,12 @@ a wrap flag) reach the host (``dispatch_topk`` / ``collect_topk``).
 
 Dispatch enqueues device work and returns the lazy tensor; collection
 (``.cpu()``) is the only point that waits on the device (the opt-in
-``threshold`` pruning of ``dispatch_topk`` adds one O(k) probe).  Integer
+``threshold`` pruning of ``dispatch_topk`` adds one O(k) probe).  On CUDA,
+``dispatch_plans`` also enqueues each group's copy into pinned host memory
+right behind the group, with an event (:class:`HostCopy`): collection waits
+for that group alone.  A ``.cpu()`` at collection would queue its copy
+behind every group enqueued since on the one stream, so with queries in
+flight (the submit pipeline) each collection would drain the stream.  Integer
 histograms make the batched sum exactly associative, so ``all_freqs`` is
 bit-identical to the per-CN path as long as every term's total fits the
 policy width.  Under
@@ -52,10 +61,13 @@ the active trace (args ``path``, ``family``, ``n_cns``, ``n_devices`` and
 first-use uploads shipped, and ``send_hits``) or ``engine.host_stack`` (host
 path), ``engine.upload`` (the host path's copies; on the store path it only
 records the first stage event) and ``fct.route`` / ``fct.mr1`` /
-``fct.mr2`` (core/fct.py): host time, all of it.  Device time per stage
-comes from four CUDA events a group, recorded on the current stream after
-the uploads and after each stage when the caller passes a ``stages`` list,
-and resolved after the collection's wait
+``fct.mr2`` (core/fct.py): host time, all of it; a replayed group opens
+the same three spans around its three graph launches.  The group span's
+``graph`` arg says how the group ran: ``eager``, ``capture`` (captured,
+then replayed) or ``replay``.  Device time per stage comes from four CUDA
+events a group, recorded on the current stream after the uploads and after
+each stage (between the replays of a replayed group) when the caller
+passes a ``stages`` list, and resolved after the collection's wait
 (:meth:`FCTEngine.device_stage_ms`).  This module also installs the obs
 span hook: while a torch profiler records, every obs span opens a
 ``record_function`` range of its name, so the profile shows the program's
@@ -65,13 +77,14 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.accum import AccumPolicy
-from repro_torch.core.fct import _device_fct_local, _mark
+from repro_torch.core.fct import (_cn_extent, _device_fct_local, _mark,
+                                  _mr1_volumes, _mr2_histograms, _route_cn)
 from repro_torch.core.plan import CNPlan
 from repro_torch.launch.mesh import (VirtualMesh, all_gather, psum,
                                      psum_scatter, vocab_padded)
@@ -82,6 +95,7 @@ from repro_torch.runtime.batch import (BUCKET_MIN, PlanSignature, RelationSig,
                                        pad_cn_axis, plan_signature,
                                        stack_group)
 from repro_torch.runtime.cache import ExecutableCache, default_cache
+from repro_torch.runtime.graphs import CAPTURE, EAGER, REPLAY, GraphCache
 from repro_torch.runtime.store import RelationStore, store_group_args
 
 CN_BUCKET_MIN = 4  # floor for bucketing the per-CN-output programs' N axis
@@ -97,6 +111,9 @@ _TOPK_REL = RelationSig(rows=BUCKET_MIN, cap=BUCKET_MIN, text_len=BUCKET_MIN)
 #: the device-stage keys :meth:`FCTEngine.device_stage_ms` fills, in the
 #: order of the events that bound them
 DEVICE_STAGES = ("device_route_ms", "device_mr1_ms", "device_mr2_ms")
+#: the obs spans of the body's stages (core/fct.py), opened around the
+#: matching graph launches of a replayed group
+STAGE_SPANS = ("fct.route", "fct.mr1", "fct.mr2")
 
 _PROFILER = torch.autograd.profiler
 
@@ -171,6 +188,14 @@ def _vmapped_cns(fact, dims, sig: PlanSignature, reduce_cns: bool,
                               domains=tuple(d.domain for d in sig.dims),
                               vocab=sig.vocab, accum=sig.accum,
                               marks=marks)                     # [N, vocab]
+    return _aggregate(hists, sig, reduce_cns, reduce_scatter)
+
+
+def _aggregate(hists: torch.Tensor, sig: PlanSignature, reduce_cns: bool,
+               reduce_scatter: bool) -> torch.Tensor:
+    """The cross-CN sum (in the policy dtype) and the cross-worker
+    aggregation of ``[N, vocab]`` histograms, as :func:`_vmapped_cns`
+    describes."""
     acc = sig.accum.dtype
     out = hists.sum(dim=0, dtype=acc) if reduce_cns else hists.to(acc)
     if reduce_scatter:
@@ -226,7 +251,12 @@ def _build_store_fn(sig: PlanSignature, mesh: VirtualMesh, n_stack: int,
     program uploads nothing: its ``engine.upload`` span (``bytes`` 0) only
     records the first stage event, so the span tree keeps the host-stacked
     family's shape.  ``marks`` as for the host-stacked family.
+
+    ``program.stages`` is the same body as three callables for graph
+    capture (graphs.py): ``route(fact, dims)``, ``mr1(routed)``, and
+    ``mr2(routed, volumes)`` with the aggregation.
     """
+    domains = tuple(d.domain for d in sig.dims)
 
     def program(fact, dims, marks=None):
         with obs_span("engine.upload", bytes=0):
@@ -234,6 +264,14 @@ def _build_store_fn(sig: PlanSignature, mesh: VirtualMesh, n_stack: int,
         return _vmapped_cns(fact, dims, sig, reduce_cns, reduce_scatter,
                             marks)
 
+    def mr1(routed):
+        return _mr1_volumes(*routed, domains, sig.accum)
+
+    def mr2(routed, vols):
+        return _aggregate(_mr2_histograms(*routed, *vols, sig.vocab), sig,
+                          reduce_cns, reduce_scatter)
+
+    program.stages = (_route_cn, mr1, mr2)
     return program
 
 
@@ -334,6 +372,24 @@ def _build_topk_fn(sig: PlanSignature, mesh: VirtualMesh,
     return program
 
 
+class HostCopy(NamedTuple):
+    """A group's output copied into pinned host memory on the current
+    stream at dispatch, and the event recorded after the copy."""
+
+    host: torch.Tensor
+    done: torch.cuda.Event
+
+
+def _to_host(out: torch.Tensor) -> HostCopy:
+    """Enqueues ``out``'s copy to pinned host memory and an event behind
+    it; nothing waits here."""
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return HostCopy(host, done)
+
+
 @dataclasses.dataclass
 class TopkPending:
     """Pending handle of :meth:`FCTEngine.dispatch_topk`: lazy O(k) device
@@ -372,6 +428,9 @@ class FCTEngine:
     the launched shapes; ``route_slots`` the gather slots the routing
     launches (``N·P·P·cap`` of every relation, as bucketed) beside
     ``route_rows``, the rows the group's plans send (``shuffle_rows``).
+    ``graph_eager``, ``graph_captures`` and ``graph_replays`` count the
+    store-path groups that ran eagerly, were captured as CUDA graphs (and
+    replayed once), and were replayed (:attr:`graphs`, graphs.py).
 
     ``reduce_scatter=True`` (default) returns multi-worker aggregates in the
     reduce-scatter layout (vocab padded to a multiple of P, each worker
@@ -404,6 +463,14 @@ class FCTEngine:
         # those later dispatches found on the device
         self._c_send_uploads = self.metrics.counter("engine.send_uploads")
         self._c_send_hits = self.metrics.counter("engine.send_hits")
+        # store-path groups by how they ran (graphs.py)
+        self._c_graph = {
+            mode: self.metrics.counter(name) for mode, name in (
+                (EAGER, "engine.graph_eager"),
+                (CAPTURE, "engine.graph_captures"),
+                (REPLAY, "engine.graph_replays"))}
+        #: the store-path groups' CUDA graphs, by input identity
+        self.graphs = GraphCache()
         # recycled CUDA timing events of the device-stage timers
         self._events: collections.deque = collections.deque()
 
@@ -461,9 +528,13 @@ class FCTEngine:
         and stacks every column (``stack_group``) and the program uploads
         them.
 
+        On a CUDA mesh a store-path group whose inputs are the very
+        tensors of an earlier dispatch is captured as three CUDA graphs at
+        its second dispatch and replayed from then on (:attr:`graphs`).
+
         ``stages`` (a list) asks for the group's device-stage events on
         CUDA: four are recorded and appended to it as one entry.
-        ``group_span`` (the group's span) gets ``built``.
+        ``group_span`` (the group's span) gets ``built`` and ``graph``.
         """
         n_stack = len(group)
         if not reduce_cns and self.bucket:
@@ -472,6 +543,7 @@ class FCTEngine:
         # variants can coexist
         rs = self._reduce_scatters(sig.n_devices)
         agg = "rs" if rs else "psum"
+        graph, entry = EAGER, None
         if store is not None:
             if store.mesh != mesh:
                 raise ValueError("the store is bound to another mesh")
@@ -489,6 +561,8 @@ class FCTEngine:
             self._c_bytes.inc(args.shipped)
             self._c_send_uploads.inc(args.send_uploads)
             self._c_send_hits.inc(args.send_hits)
+            graph, entry = self.graphs.decide(key, mesh.device, args.inputs)
+            self._c_graph[graph].inc()
         else:
             with obs_span("engine.host_stack", n_stack=n_stack):
                 fact, dims = stack_group(group, sig)
@@ -508,10 +582,15 @@ class FCTEngine:
             self._c_column_bytes.inc(columns)
         if group_span is not None:
             group_span.args["built"] = built
+            group_span.args["graph"] = graph
         marks = (_GroupMarks(self._events)
                  if stages is not None and mesh.device.type == "cuda"
                  else None)
-        out = fn(fact, dims, marks)
+        if graph == EAGER:
+            out = fn(fact, dims, marks)
+        else:
+            out = self._replay(graph, entry, fn.stages, fact, dims,
+                               mesh.device, marks)
         if marks is not None:
             stages.append(marks.events)
         self._c_batches.inc()
@@ -519,6 +598,23 @@ class FCTEngine:
         self._c_fct_tokens.inc(_mr2_token_slots(sig, n_stack))
         self._c_route_slots.inc(_route_slots(sig, n_stack))
         self._c_route_rows.inc(sum(p.shuffle_rows for p in group))
+        return out
+
+    def _replay(self, graph: str, entry, stages, fact, dims, device,
+                marks) -> torch.Tensor:
+        """Captures the group's graphs first if ``graph`` is CAPTURE, then
+        launches them back to back, each inside its stage's span and
+        followed by its stage event; returns the output's copy."""
+        n_cns, rows = _cn_extent(fact["send"])
+        with self.graphs.lock:
+            if graph == CAPTURE:
+                self.graphs.capture_group(entry, stages, fact, dims, device)
+            with obs_span("engine.upload", bytes=0):
+                _mark(marks)
+            for i, name in enumerate(STAGE_SPANS):
+                with obs_span(name, n_cns=n_cns, rows=rows):
+                    out = entry.graphs.replay(i)
+                    _mark(marks)
         return out
 
     def device_stage_ms(self, stages: list) -> Dict[str, float]:
@@ -538,8 +634,12 @@ class FCTEngine:
         stages.clear()
         return {k: round(v, 4) for k, v in zip(DEVICE_STAGES, sums)}
 
-    def _collect(self, lazy: torch.Tensor) -> np.ndarray:
-        raw = lazy.cpu().numpy()     # the one wait on the device
+    def _collect(self, lazy) -> np.ndarray:
+        if isinstance(lazy, HostCopy):
+            lazy.done.synchronize()  # the one wait: this group's work
+            raw = lazy.host.numpy()
+        else:
+            raw = lazy.cpu().numpy()     # the one wait on the device
         self._c_d2h.inc(raw.nbytes)
         # the dtype IS the policy on the collection side: int32 results were
         # accumulated under INT32_CHECKED, whose contract is to fail loudly
@@ -553,7 +653,8 @@ class FCTEngine:
                        accum: Optional[AccumPolicy] = None,
                        stages: Optional[list] = None):
         """Async half of a run: enqueue every signature group and return a
-        pending handle ``[(plan_indices, lazy_result), ...]``; block with
+        pending handle ``[(plan_indices, lazy_result), ...]`` (on CUDA each
+        result a :class:`HostCopy` already on its way); block with
         ``collect_total`` / ``collect_individual``.  ``individual=True``
         keeps the per-CN output axis so CNs of different queries can share
         a dispatch.  ``store`` (a RelationStore bound to this mesh) holds
@@ -563,10 +664,15 @@ class FCTEngine:
         groups' device-stage events on CUDA (:meth:`device_stage_ms`)."""
         if not plans:
             raise ValueError("dispatch_plans needs at least one plan")
-        return [(idxs, self._dispatch(sig, [plans[i] for i in idxs], mesh,
-                                      reduce_cns=not individual,
-                                      store=store, stages=stages))
-                for sig, idxs in self._group(plans, accum)]
+        pending = []
+        for sig, idxs in self._group(plans, accum):
+            lazy = self._dispatch(sig, [plans[i] for i in idxs], mesh,
+                                  reduce_cns=not individual, store=store,
+                                  stages=stages)
+            if mesh.device.type == "cuda":
+                lazy = _to_host(lazy)
+            pending.append((idxs, lazy))
+        return pending
 
     def collect_total(self, pending, vocab: int) -> np.ndarray:
         """Block on an ``individual=False`` handle: total freq[vocab]; the
@@ -757,17 +863,19 @@ class FCTEngine:
         out = self.cache.stats()
         (batches, cns, shipped, columns, d2h, g_pruned,
          rows_pruned, tokens, send_uploads, send_hits, route_slots,
-         route_rows) = self.metrics.values(
+         route_rows, g_eager, g_captures, g_replays) = self.metrics.values(
             self._c_batches, self._c_cns, self._c_bytes,
             self._c_column_bytes, self._c_d2h, self._c_groups_pruned,
             self._c_pruned_rows, self._c_fct_tokens, self._c_send_uploads,
-            self._c_send_hits, self._c_route_slots, self._c_route_rows)
+            self._c_send_hits, self._c_route_slots, self._c_route_rows,
+            *self._c_graph.values())
         out.update(batches_run=batches, cns_run=cns, bytes_shipped=shipped,
                    column_bytes_shipped=columns, device_to_host_bytes=d2h,
                    groups_pruned=g_pruned, pruned_rows=rows_pruned,
                    fct_count_tokens=tokens, send_uploads=send_uploads,
                    send_hits=send_hits, route_slots=route_slots,
-                   route_rows=route_rows)
+                   route_rows=route_rows, graph_eager=g_eager,
+                   graph_captures=g_captures, graph_replays=g_replays)
         return out
 
 

@@ -87,6 +87,9 @@ class RelationStore:
         # one -1 on the device: null CN slots route nothing (null_send)
         self._minus_one = torch.full((), -1, dtype=torch.int32,
                                      device=mesh.device)
+        # cap -> the null send table, one view each, so a padded group's
+        # inputs are the same objects at every dispatch
+        self._null_sends: Dict[int, torch.Tensor] = {}
 
     @property
     def chunk_assembles(self) -> int:
@@ -208,9 +211,13 @@ class RelationStore:
     def null_send(self, cap: int) -> torch.Tensor:
         """An all ``-1`` ``[1, P, P, cap]`` send table on the device, for
         the null CN slots of a padded group: a view of one cached scalar, so
-        it costs no memory and no copy."""
-        P = self.mesh.size
-        return self._minus_one.expand(1, P, P, cap)
+        it costs no memory and no copy, and the same view at every call."""
+        table = self._null_sends.get(cap)
+        if table is None:
+            P = self.mesh.size
+            table = self._null_sends.setdefault(
+                cap, self._minus_one.expand(1, P, P, cap))
+        return table
 
     # -- lifecycle / introspection ------------------------------------------
 
@@ -268,22 +275,19 @@ def _resident(route: RelationRoute, key: Tuple, host) -> Tuple[torch.Tensor,
             table.numel() * table.element_size())
 
 
-def _cn_axis(tables: List[torch.Tensor]) -> torch.Tensor:
-    """``[1, ...]`` device tables joined along the CN axis: one device-side
-    copy, none for a group of one."""
-    return tables[0] if len(tables) == 1 else torch.cat(tables)
-
-
 class GroupArgs(NamedTuple):
     """One signature group's store-path arguments and what building them
     shipped: ``shipped`` host->device bytes, ``send_uploads`` send tables
-    uploaded, ``send_hits`` send tables found on the device."""
+    uploaded, ``send_hits`` send tables found on the device.  ``inputs`` is
+    every device tensor of the arguments, in a fixed order: a later group
+    whose inputs are these very objects reads the same memory."""
 
     fact: Dict
     dims: List[Dict]
     shipped: int
     send_uploads: int
     send_hits: int
+    inputs: Tuple[torch.Tensor, ...]
 
 
 def store_group_args(store: RelationStore, plans: Sequence[CNPlan],
@@ -291,16 +295,18 @@ def store_group_args(store: RelationStore, plans: Sequence[CNPlan],
     """Arguments for one stacked signature group on the store path.
 
     ``fact`` / each dim slot is ``{"text": [N device tensors], "keys": [N
-    device tensors], "send": [N, P, P, C] device int32}``, and the fact adds
-    ``"cols"``, ``[N, m]`` device int32 key-column indices.  Every tensor is
-    resident: columns in the store, each route's send table (padded to the
-    signature's ``cap``) and key-column indices on the route itself, uploaded
-    at its first store-path dispatch; the group's tables are joined on the
-    device (:func:`_cn_axis`).  So a plan dispatched again ships 0 bytes
-    (``shipped`` counts the first uses).  Slots past ``len(plans)`` are
-    null plans: they alias the first plan's store-resident columns and key
-    columns and route nothing (:meth:`RelationStore.null_send`),
-    contributing exactly zero to every histogram.
+    device tensors], "send": [N device [1, P, P, C] int32]}``, and the fact
+    adds ``"cols"``, N device ``[1, m]`` int32 key-column indices.  Every
+    tensor is resident: columns in the store, each route's send table
+    (padded to the signature's ``cap``) and key-column indices on the route
+    itself, uploaded at its first store-path dispatch.  The program joins
+    the tables along the CN axis on the device as the first step of routing
+    (``core/fct.py::_cn_joined``), so the lookups here copy nothing, and a
+    plan dispatched again ships 0 bytes (``shipped`` counts the first
+    uses).  Slots past ``len(plans)`` are null plans: they alias the first
+    plan's store-resident columns and key columns and route nothing
+    (:meth:`RelationStore.null_send`), contributing exactly zero to every
+    histogram.
     """
     pad = n_stack - len(plans)
     dev = store.mesh.device
@@ -321,8 +327,7 @@ def store_group_args(store: RelationStore, plans: Sequence[CNPlan],
             cols.extend([cols[0]] * pad)
             sends.extend([store.null_send(rsig.cap)] * pad)
         return {"text": [c.text for c in cols],
-                "keys": [c.keys for c in cols],
-                "send": _cn_axis(sends)}
+                "keys": [c.keys for c in cols], "send": sends}
 
     fact = one_relation([p.fact for p in plans], sig.fact)
     key_cols = []
@@ -332,8 +337,12 @@ def store_group_args(store: RelationStore, plans: Sequence[CNPlan],
             lambda p=p: np.asarray(p.fact.key_cols, np.int32))
         key_cols.append(table)
         shipped += nbytes
-    fact["cols"] = _cn_axis(key_cols + [key_cols[0]] * pad)
+    fact["cols"] = key_cols + [key_cols[0]] * pad
     dims = [one_relation([p.dims[p.included[j]] for p in plans], rsig)
             for j, rsig in enumerate(sig.dims)]
     n_tables = len(plans) * (1 + len(sig.dims))
-    return GroupArgs(fact, dims, shipped, uploads, n_tables - uploads)
+    inputs = tuple(t for rel in (fact, *dims)
+                   for part in ("text", "keys", "send", "cols")
+                   for t in rel.get(part, ()))
+    return GroupArgs(fact, dims, shipped, uploads, n_tables - uploads,
+                     inputs)
