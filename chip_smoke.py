@@ -89,7 +89,7 @@ Phases, one line each, then a kernels line and a last line with the device:
  7b. analysis   the port's invariant checks (``repro_torch.analysis``):
                 the AST lint (R1-R5) over ``src/repro_torch``, 0 violations,
                 its waivers listed; the runtime contracts (C1-C4) over the
-                five FCT program families at P 1 and 8 under both policies
+                three FCT program families at P 1 and 8 under both policies
                 on the card, 0 failures, inside ``counted`` (both integer
                 fct_count instantiations launched, no plain-version call;
                 ``analysis_launches`` in the kernels line); then
@@ -106,17 +106,17 @@ Phases, one line each, then a kernels line and a last line with the device:
                 to 0 just before the submit burst and read just after it
                 (``pipeline_submit_launches``).
   9. engine_paths  the engine's other paths on phase 4's deployment and
-                its full query's joined-CN plans (P 1, int32): the
-                host-stacked families (``FCTEngine().run_plans`` and
-                ``run_plans_individual`` with no store), bit-equal to
-                ``fct_star`` and to the store path's ``run_plans``, their
-                ``column_bytes_shipped`` equal to the bytes predicted from
-                the stacked shapes (the store path's: 0), wall times of
-                each; ``run_cn_plan_two_jobs`` on the largest joined
+                its full query's joined-CN plans (P 1, int32): storeless
+                calls (``FCTEngine().run_plans`` and
+                ``run_plans_individual`` with no store, each uploading the
+                columns to a store of its own), bit-equal to ``fct_star``
+                and to the session store's ``run_plans`` (which uploads no
+                column), their column upload bytes and wall times;
+                ``run_cn_plan_two_jobs`` on the largest joined
                 two-dimension CN, without and with a checkpoint in a
                 temporary directory (its size, save and restore times),
                 each bit-equal to that CN's ``run_plans_individual`` row;
-                one host-stacked int64 ``run_plans``.  Then P 8 on the same
+                one storeless int64 ``run_plans``.  Then P 8 on the same
                 generator at 0.05 of SF1's cardinalities (cut: on the host of
                 an H100 machine one cold P 8 plan of the planted triple at
                 SF1, Zipf z 1 keys, takes 26.5 s in uniform mode and 29.0 s
@@ -126,7 +126,7 @@ Phases, one line each, then a kernels line and a last line with the device:
                 ``query`` and ``query_batch`` through sessions on
                 ``FCTEngine()``, ``FCTEngine(reduce_scatter=False)`` and
                 ``FCTEngine(batch=False, bucket=False)``, each engine's
-                host-stacked ``run_plans`` too, device top-k under psum,
+                storeless ``run_plans`` too, device top-k under psum,
                 and ``run_fct_query`` equal to the session's answer; every
                 answer bit-equal to ``fct_star``.  Each path (``batched``,
                 ``batched_percn``, ``two_jobs``, ``two_jobs_ckpt``,
@@ -1192,23 +1192,6 @@ P8_ENGINES = {"rs": {}, "psum": {"reduce_scatter": False},
               "unbatched": {"batch": False, "bucket": False}}
 
 
-def predicted_column_bytes(engine, plans, individual):
-    """The text and key bytes the host-stacked families ship for ``plans``,
-    from the stacked shapes alone: per group, N (rounded up to the null-CN
-    padding of the per-CN family) x P x rows x (text_len + key columns) x 4
-    bytes (int32) per relation."""
-    from repro_torch.runtime.engine import CN_BUCKET_MIN
-    total = 0
-    for sig, idxs in engine._group(plans):
-        n = len(idxs)
-        if individual and engine.bucket:
-            n = -(-n // CN_BUCKET_MIN) * CN_BUCKET_MIN
-        per_cn = sig.fact.rows * (sig.fact.text_len + sig.m) + sum(
-            d.rows * (d.text_len + 1) for d in sig.dims)
-        total += n * sig.n_devices * per_cn * 4
-    return total
-
-
 def timed(torch, dev, fn, trace=None):
     """(fn's result, wall ms up to a synchronize); ``fn`` runs with
     ``trace`` active when one is given."""
@@ -1238,9 +1221,12 @@ def run_engine_paths(torch, np, args, dev, session, full, oracle):
     from repro_torch.core.fct import run_cn_plan_two_jobs, run_fct_query
     from repro_torch.core.star import fct_star
     from repro_torch.data.schema import PAD_ID
-    from repro_torch.obs import Trace
+    from repro_torch.obs import MetricsRegistry, Trace
     from repro_torch.runtime.cache import ExecutableCache
     from repro_torch.runtime.engine import FCTEngine
+
+    def column_bytes(eng):     # what its storeless calls' stores uploaded
+        return eng.metrics.snapshot()["counters"].get("store.upload_bytes", 0)
 
     kws = list(full.keywords)
     planned = session._plan(full)             # phase 4's, from the cache
@@ -1253,46 +1239,41 @@ def run_engine_paths(torch, np, args, dev, session, full, oracle):
         return out
 
     before = session.engine.stats()
+    store_cols0 = session.store.stats()["store_upload_bytes"]
     store, store_ms = timed(torch, dev, lambda: session.engine.run_plans(
         plans, mesh, store=session.store))
     after = session.engine.stats()
     check(np.array_equal(with_map_only(store), oracle),
           "store-path run_plans differs from fct_star")
     store_bytes = after["bytes_shipped"] - before["bytes_shipped"]
-    store_cols = after["column_bytes_shipped"] - before["column_bytes_shipped"]
-    check(store_cols == 0, f"the store path shipped {store_cols} column bytes")
+    store_cols = session.store.stats()["store_upload_bytes"] - store_cols0
+    check(store_cols == 0, f"the session's store uploaded {store_cols} "
+          f"column bytes for plans it had run")
 
     cache = ExecutableCache()
     lines = []
     for label, individual in (("batched", False), ("batched_percn", True)):
-        eng = FCTEngine(cache=cache)
-        predicted = predicted_column_bytes(eng, plans, individual)
-        print(f"[engine_paths] {label}: predicted column_bytes_shipped "
-              f"{predicted} for {len(plans)} CNs in "
-              f"{len(eng._group(plans))} groups", flush=True)
+        eng = FCTEngine(cache=cache, metrics=MetricsRegistry())
         run = eng.run_plans_individual if individual else eng.run_plans
         trace = Trace()
         (out, ms), launches[label] = counted(
-            f"host-stacked {label}",
+            f"storeless {label}",
             lambda: timed(torch, dev, lambda: run(plans, mesh), trace))
         spans = span_ms(trace)
         if individual:
             per_cn, out = out, out.sum(axis=0)
         check(np.array_equal(out, store),
-              f"host-stacked {label} differs from the store path")
+              f"storeless {label} differs from the store path")
         check(np.array_equal(with_map_only(out), oracle),
-              f"host-stacked {label} differs from fct_star")
+              f"storeless {label} differs from fct_star")
         st = eng.stats()
-        check(st["column_bytes_shipped"] == predicted,
-              f"{label}: shipped {st['column_bytes_shipped']} column bytes, "
-              f"predicted {predicted}")
-        lines.append(f"{label} {ms:.3f} ms (host stacking "
-                     f"{spans['engine.host_stack']:.3f} ms of the groups' "
+        check(column_bytes(eng) > 0, f"storeless {label} uploaded no column")
+        lines.append(f"{label} {ms:.3f} ms (column uploads "
+                     f"{spans.get('store.upload', 0.0):.3f} ms of the groups' "
                      f"dispatch {spans['engine.dispatch_group']:.3f} ms), "
-                     f"column_bytes_shipped {st['column_bytes_shipped']} "
-                     f"(predicted {predicted}), bytes_shipped "
+                     f"store.upload_bytes {column_bytes(eng)}, bytes_shipped "
                      f"{st['bytes_shipped']}, groups {st['batches_run']}")
-    lines.append(f"store path {store_ms:.3f} ms, column_bytes_shipped "
+    lines.append(f"session store {store_ms:.3f} ms, store.upload_bytes "
                  f"{store_cols}, bytes_shipped {store_bytes}")
     print(f"[engine_paths] P 1 SF1 x {args.scale}: " + "; ".join(lines),
           flush=True)
@@ -1323,15 +1304,15 @@ def run_engine_paths(torch, np, args, dev, session, full, oracle):
           f"{spans['fct.checkpoint_save']:.3f} ms, restore "
           f"{spans['fct.checkpoint_restore']:.3f} ms", flush=True)
 
-    eng64 = FCTEngine(cache=cache)
+    eng64 = FCTEngine(cache=cache, metrics=MetricsRegistry())
     (t64, ms), launches["batched_int64"] = counted(
-        "host-stacked int64", lambda: timed(torch, dev, lambda: eng64.run_plans(
+        "storeless int64", lambda: timed(torch, dev, lambda: eng64.run_plans(
             plans, mesh, accum=INT64_EXACT)),
         kernels=("fct_count_exact_int64",))
     check(np.array_equal(with_map_only(t64), oracle),
-          "host-stacked int64 run_plans differs from fct_star")
-    print(f"[engine_paths] host-stacked int64 {ms:.3f} ms, column_bytes_"
-          f"shipped {eng64.column_bytes_shipped}", flush=True)
+          "storeless int64 run_plans differs from fct_star")
+    print(f"[engine_paths] storeless int64 {ms:.3f} ms, store.upload_bytes "
+          f"{column_bytes(eng64)}", flush=True)
 
     # P = 8 at a cut scale: every mode, both aggregation layouts, unbatched
     t0 = time.perf_counter()
@@ -1361,7 +1342,7 @@ def run_engine_paths(torch, np, args, dev, session, full, oracle):
             host = p0.host_freq + host
             host[PAD_ID] = 0
             check(np.array_equal(host, oracle8),
-                  f"P 8 {label} host-stacked run_plans differs from fct_star")
+                  f"P 8 {label} storeless run_plans differs from fct_star")
             p8_lines.append(f"{label} {(time.perf_counter() - t1) * 1e3:.3f}"
                             f" ms, batches {eng.stats()['batches_run']}")
         s = FCTSession(schema8, device=dev, n_workers=8,
@@ -3475,9 +3456,9 @@ def main() -> int:
     path_launches.update(engine_launches)
     del session, schema, oracles
     torch.cuda.empty_cache()
-    phase("engine_paths", t0, "host-stacked run_plans and "
+    phase("engine_paths", t0, "storeless run_plans and "
                               "run_plans_individual, the two-job path with "
-                              "and without a checkpoint, host-stacked int64, "
+                              "and without a checkpoint, storeless int64, "
                               "and every mode at P 8 under reduce-scatter, "
                               "psum and unbatched, every answer bit-equal to "
                               "fct_star; fct_count launched and no "

@@ -14,7 +14,7 @@ rule catalog and rationale):
   (``# fct-lint: waive[R3] -- why this is safe``).
 
 * **runtime contract checker** (:mod:`repro_torch.analysis.contracts`) —
-  runs the five engine program families once on small inputs of
+  runs the three engine program families once on small inputs of
   representative ``PlanSignature`` buckets under both
   :class:`~repro_torch.core.accum.AccumPolicy` modes, at P = 1 and P = 8
   on the virtual mesh, and asserts: exactly one reduction per dispatch,

@@ -6,7 +6,7 @@ argument, or ``--contracts`` on the card where there is none).
 
 By default runs the AST lint (layer 1) over ``src/repro_torch``.
 ``--contracts`` adds the runtime contract checker (layer 2; imports torch,
-runs the five program families at P = 1 and P = 8), on the card unless
+runs the three program families at P = 1 and P = 8), on the card unless
 ``--device cpu``.  ``--no-lint`` skips layer 1.
 """
 from __future__ import annotations

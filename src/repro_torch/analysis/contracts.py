@@ -6,8 +6,8 @@ families to jaxprs; the port's families are eager torch code with no
 program to trace, so the checker RUNS each family once, on small real
 inputs of a representative ``PlanSignature`` (zero texts, a few valid send
 rows, on the mesh's device), and observes the run: the families are
-``fct_batched`` / ``fct_batched_percn`` (host-stacked relations),
-``fct_store`` / ``fct_store_percn`` (device-resident columns) and the
+``fct_store`` / ``fct_store_percn`` (device-resident columns; their three
+stages run eagerly, in order, as the engine runs a group) and the
 ``fct_topk`` finalize family (device top-k over the aggregated histogram).
 On a CUDA mesh their histograms go through the ``fct_count`` kernel; on
 the CPU through its plain version.
@@ -77,7 +77,7 @@ from repro_torch.runtime.batch import BUCKET_MIN, PlanSignature, RelationSig
 #: reductions C1 counts (census names)
 REDUCTIONS = ("psum", "psum_scatter")
 
-KINDS = ("fct_batched", "fct_batched_percn", "fct_store", "fct_store_percn")
+KINDS = ("fct_store", "fct_store_percn")
 
 #: worker counts ``check_all_contracts`` runs when no mesh is given
 MESH_SIZES = (1, 8)
@@ -139,26 +139,15 @@ def _send_table(n_stack: int, p: int, rsig: RelationSig) -> np.ndarray:
     return send
 
 
-def batched_args(sig: PlanSignature, n_stack: int):
-    """Host numpy arguments shaped as ``stack_group``'s ``[N, P, ...]``
-    output (the host-stacked families)."""
-    p = sig.n_devices
-
-    def rel(rsig: RelationSig, key_tail: Tuple[int, ...]) -> Dict:
-        return {"text": np.zeros((n_stack, p, rsig.rows, rsig.text_len),
-                                 np.int32),
-                "keys": np.zeros((n_stack, p, rsig.rows) + key_tail,
-                                 np.int32),
-                "send": _send_table(n_stack, p, rsig)}
-
-    return rel(sig.fact, (sig.m,)), [rel(r, ()) for r in sig.dims]
-
-
 def store_args(sig: PlanSignature, n_stack: int, device: torch.device):
     """Arguments shaped as ``store_group_args``'s, all on the device: per
-    relation, ``n_stack`` resident ``[P, S, ...]`` columns plus the stacked
-    send tables; the fact adds its per-CN key-column indices."""
+    relation, ``n_stack`` resident ``[P, S, ...]`` columns and ``n_stack``
+    ``[1, P, P, cap]`` send tables; the fact adds ``n_stack`` ``[1, m]``
+    key-column indices."""
     p = sig.n_devices
+
+    def per_cn(array: np.ndarray) -> List[torch.Tensor]:
+        return list(torch.from_numpy(array).to(device).split(1))
 
     def rel(rsig: RelationSig, key_tail: Tuple[int, ...]) -> Dict:
         text = torch.zeros((p, rsig.rows, rsig.text_len), dtype=torch.int32,
@@ -166,52 +155,38 @@ def store_args(sig: PlanSignature, n_stack: int, device: torch.device):
         keys = torch.zeros((p, rsig.rows) + key_tail, dtype=torch.int32,
                            device=device)
         return {"text": [text] * n_stack, "keys": [keys] * n_stack,
-                "send": torch.from_numpy(_send_table(n_stack, p,
-                                                     rsig)).to(device)}
+                "send": per_cn(_send_table(n_stack, p, rsig))}
 
     fact = rel(sig.fact, (sig.fact.key_width,))
-    fact["cols"] = torch.from_numpy(np.tile(
-        np.arange(sig.m, dtype=np.int32) % sig.fact.key_width,
-        (n_stack, 1))).to(device)
+    fact["cols"] = per_cn(np.tile(
+        np.arange(sig.m, dtype=np.int32) % sig.fact.key_width, (n_stack, 1)))
     return fact, [rel(r, ()) for r in sig.dims]
 
 
 def _input_floats(args) -> List[str]:
-    """Floating-point leaves among a family's arguments (numpy or torch)."""
-    bad = []
-    for leaf in tree_leaves(args):
-        dtype = getattr(leaf, "dtype", None)
-        if isinstance(leaf, torch.Tensor):
-            if leaf.is_floating_point():
-                bad.append(f"input {dtype}{list(leaf.shape)}")
-        elif isinstance(leaf, np.ndarray) and np.issubdtype(dtype,
-                                                            np.floating):
-            bad.append(f"input {dtype}{list(leaf.shape)}")
-    return bad
+    """Floating-point tensors among a family's arguments."""
+    return [f"input {leaf.dtype}{list(leaf.shape)}"
+            for leaf in tree_leaves(args)
+            if isinstance(leaf, torch.Tensor) and leaf.is_floating_point()]
 
 
 def run_family(kind: str, sig: PlanSignature, n_stack: int,
                mesh: VirtualMesh):
-    """Builds one histogram family as the engine does (same builders, same
-    aggregation choice) and runs it once on small real arguments.  Returns
-    ``(output, census, floats)``: the census counts of the run and every
-    floating-point value the run made or was given."""
+    """Builds one histogram family as the engine does (same builder, same
+    aggregation choice) and runs its stages once, eagerly, in the order the
+    engine's loop runs them (``_stage_steps``), on small real arguments.
+    Returns ``(output, census, floats)``: the census counts of the run and
+    every floating-point value the run made or was given."""
     from repro_torch.runtime import engine
 
-    reduce_cns = not kind.endswith("percn")
-    # mirrors FCTEngine._dispatch: reduce-scatter only on multi-worker meshes
-    rs = sig.n_devices > 1
-    if kind.startswith("fct_store"):
-        fn = engine._build_store_fn(sig, mesh, n_stack, reduce_cns=reduce_cns,
-                                    reduce_scatter=rs)
-        args = store_args(sig, n_stack, mesh.device)
-    else:
-        fn = engine._build_batched_fn(sig, mesh, reduce_cns=reduce_cns,
-                                      reduce_scatter=rs)
-        args = batched_args(sig, n_stack)
+    # mirrors FCTEngine._dispatch_group: reduce-scatter only on
+    # multi-worker meshes
+    program = engine._build_stages(sig, not kind.endswith("percn"),
+                                   sig.n_devices > 1)
+    args = store_args(sig, n_stack, mesh.device)
     log = FloatLog()
     with collective_census() as census, log:
-        out = fn(*args)
+        *_, out = engine._stage_steps(program, *args)
     return out, census, _input_floats(args) + log.floats
 
 
@@ -418,7 +393,7 @@ def check_topk_contract(sig: PlanSignature, mesh: VirtualMesh,
 def check_all_contracts(mesh: Optional[VirtualMesh] = None,
                         policies: Optional[Sequence[AccumPolicy]] = None,
                         device=None) -> Tuple[List[str], int]:
-    """Run C1-C4 for all five families over the representative signature
+    """Run C1-C4 for all three families over the representative signature
     buckets; returns (failures, programs_checked).
 
     ``policies`` defaults to both policies (torch needs no flag for int64).

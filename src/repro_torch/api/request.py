@@ -92,9 +92,10 @@ class FCTResponse:
     span tree: ``plan`` (with ``plan.tuple_sets``, ``plan.cns``,
     ``plan.cn_plan`` and ``plan.map_only`` beneath it when the plan was not
     cached), ``dispatch``, the engine's ``engine.dispatch_group`` spans
-    (``store.group_args`` with ``store.upload`` / ``store.chunk_assemble``,
-    or ``engine.host_stack``; ``engine.upload``; ``fct.route``, ``fct.mr1``,
-    ``fct.mr2``), ``collect``, ``finalize``, plus cache-lookup / batcher
+    (``store.group_args`` with ``store.upload`` / ``store.chunk_assemble``;
+    ``engine.upload``, which records the first stage event; ``fct.route``,
+    ``fct.mr1``, ``fct.mr2``, one a stage, eager or replayed), ``collect``,
+    ``finalize``, plus cache-lookup / batcher
     spans where they apply.  Every span is host time; the device-stage
     times above are kept out of it.  ``trace.records()`` gives structured
     dicts, ``repro_torch.obs.chrome_trace([...])`` a Chrome trace_event

@@ -73,7 +73,7 @@ from repro_torch.runtime.store import RelationStore
 
 _ENGINE_COUNTERS = ("hits", "misses", "traces", "evictions",
                     "batches_run", "cns_run", "bytes_shipped",
-                    "column_bytes_shipped", "store_uploads", "store_hits",
+                    "store_uploads", "store_hits",
                     "store_upload_bytes", "store_chunk_assembles",
                     "device_to_host_bytes", "groups_pruned", "pruned_rows",
                     "fct_count_tokens", "send_uploads", "send_hits",

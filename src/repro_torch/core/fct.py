@@ -28,6 +28,11 @@ where JAX's clamp or drop: gathers wrap a negative index once and then clamp
 (:func:`_clamp_index`); scatter-adds wrap once and drop what is still out of
 range (:func:`_scatter_add_drop`).  On the main path every index is in range.
 
+The engine (``runtime/engine.py``) runs a signature group's program as three
+stages: routing (:func:`_route_cn`), MR¹ (:func:`_mr1_volumes`) and MR²
+(:func:`_mr2_histograms`) with its aggregation; :func:`run_cn_plan` composes
+the same three for one CN.
+
 The two jobs are also separable (:func:`run_cn_plan_two_jobs`): job 1
 returns the vol-array artifact that job 2 consumes, so the MR¹→MR² boundary
 can be checkpointed — the paper's "two MapReduce jobs" as two programs.  The
@@ -119,28 +124,20 @@ def _route(texts: Sequence[torch.Tensor], keys: Sequence[torch.Tensor],
             rkeys.view((N, P, P * C) + tuple(k_tail)), mask)
 
 
-def _cn_joined(tables):
-    """A CN batch's tables as one ``[N, ...]`` tensor: a stacked tensor as
-    it is, a list of ``[1, ...]`` tables (the store path's per-plan resident
-    ones) joined along the CN axis on the device, a list of one as that
-    table."""
-    if isinstance(tables, torch.Tensor) or tables is None:
-        return tables
+def _cn_joined(tables: Optional[List[torch.Tensor]]):
+    """A CN batch's ``[1, ...]`` tables (one per CN, as the store and
+    :func:`plan_to_tensors` hand them) as one ``[N, ...]`` tensor, joined
+    along the CN axis on the device; a list of one as that table."""
+    if tables is None:
+        return None
     return tables[0] if len(tables) == 1 else torch.cat(tables)
-
-
-def _cn_extent(send) -> Tuple[int, int]:
-    """(CNs, routed row slots ``N * P * P * C``) of a batch's send tables,
-    stacked or as a list."""
-    tables = [send] if isinstance(send, torch.Tensor) else send
-    return (sum(t.shape[0] for t in tables), sum(t.numel() for t in tables))
 
 
 def _route_cn(fact: Dict, dims: Sequence[Dict]):
     """MR¹ shuffle stage: route every relation of a CN batch per its send
-    tables, joined first if they come as a list (:func:`_cn_joined`).
-    ``fact["cols"]`` (optional) names each CN's columns of the full-width
-    store-resident fact key matrix."""
+    tables, joined first (:func:`_cn_joined`).  ``fact["cols"]`` (optional)
+    names each CN's columns of the full-width store-resident fact key
+    matrix."""
     routed_fact = _route(fact["text"], fact["keys"], _cn_joined(fact["send"]),
                          _cn_joined(fact.get("cols")))
     routed_dims = [_route(d["text"], d["keys"], _cn_joined(d["send"]))
@@ -187,12 +184,6 @@ def _mr1_volumes(routed_fact, routed_dims, domains: Tuple[int, ...],
     return vol_fact, dim_vols
 
 
-def _mark(marks) -> None:
-    """Record the next stage boundary on the device stream, if asked."""
-    if marks is not None:
-        marks.record()
-
-
 def _mr2_histograms(routed_fact, routed_dims, vol_fact, dim_vols,
                     vocab: int) -> torch.Tensor:
     """MR² on routed relations and their volumes: one weighted histogram
@@ -209,56 +200,28 @@ def _mr2_histograms(routed_fact, routed_dims, vol_fact, dim_vols,
     return hist
 
 
-def _device_fct_local(fact: Dict, dims: Sequence[Dict], *,
-                      domains: Tuple[int, ...], vocab: int,
-                      accum: AccumPolicy = INT32_CHECKED,
-                      marks=None) -> torch.Tensor:
-    """MR¹+MR² for a batch of N CNs -> ``[N, vocab]`` histograms in the
-    policy dtype, summed over the worker axis (the reference's per-worker
-    histograms followed by its psum, bit for bit).
-
-    Each stage runs inside an obs span on the active trace — ``fct.route``,
-    ``fct.mr1``, ``fct.mr2``, args ``n_cns`` and ``rows`` (the fact's routed
-    row slots, ``N * P * P * C``) — which times the host's enqueueing of
-    it; the kernels themselves run later on the device.  ``marks`` (the
-    engine's, on CUDA) gets ``record()`` at the end of each stage, which
-    puts a timing event on the current stream: the device time of each
-    stage is the distance between two such events."""
-    n_cns, rows = _cn_extent(fact["send"])
-    with obs_span("fct.route", n_cns=n_cns, rows=rows):
-        routed_fact, routed_dims = _route_cn(fact, dims)
-        _mark(marks)
-    with obs_span("fct.mr1", n_cns=n_cns, rows=rows):
-        vol_fact, dim_vols = _mr1_volumes(routed_fact, routed_dims, domains,
-                                          accum)
-        _mark(marks)
-    with obs_span("fct.mr2", n_cns=n_cns, rows=rows):
-        hist = _mr2_histograms(routed_fact, routed_dims, vol_fact, dim_vols,
-                               vocab)
-        _mark(marks)
-    return hist
-
-
 def plan_to_tensors(plan: CNPlan, device) -> Tuple[Dict, List[Dict]]:
     """One plan's materialized host columns as a batch of one CN."""
     def rel(route) -> Dict:
         return {"text": [torch.as_tensor(route.text, device=device)],
                 "keys": [torch.as_tensor(route.keys, device=device)],
-                "send": torch.as_tensor(route.send, device=device)[None]}
+                "send": [torch.as_tensor(route.send, device=device)[None]]}
     return rel(plan.fact), [rel(plan.dims[i]) for i in plan.included]
 
 
 def run_cn_plan(plan: CNPlan, mesh: VirtualMesh,
                 accum: AccumPolicy = INT32_CHECKED) -> np.ndarray:
-    """The per-CN baseline: one plan, host-materialized columns, one
-    program -> freq[vocab] int64 (no wrap check, as in the reference)."""
+    """The per-CN baseline: one plan, host-materialized columns, routing,
+    MR¹ and MR² -> freq[vocab] int64 (no wrap check, as in the reference).
+    The MR² histograms come back summed over the worker axis, which is the
+    reference's per-worker histograms followed by its psum, bit for bit."""
     if mesh.n_workers != plan.n_devices:
         raise ValueError(f"plan built for {plan.n_devices} workers, mesh has "
                          f"{mesh.n_workers}")
-    fact, dims = plan_to_tensors(plan, mesh.device)
-    hist = _device_fct_local(
-        fact, dims, domains=tuple(plan.key_domains[i] for i in plan.included),
-        vocab=plan.vocab_size, accum=accum)
+    routed = _route_cn(*plan_to_tensors(plan, mesh.device))
+    vols = _mr1_volumes(*routed, tuple(plan.key_domains[i]
+                                       for i in plan.included), accum)
+    hist = _mr2_histograms(*routed, *vols, plan.vocab_size)
     return psum(hist[0].to(accum.dtype)).cpu().numpy().astype(np.int64)
 
 
@@ -309,7 +272,7 @@ def _build_job1(sig: PlanSignature, mesh: VirtualMesh):
     def upload(rel):
         return {"text": [torch.from_numpy(rel["text"]).to(device)],
                 "keys": [torch.from_numpy(rel["keys"]).to(device)],
-                "send": torch.from_numpy(rel["send"]).to(device)[None]}
+                "send": [torch.from_numpy(rel["send"]).to(device)[None]]}
 
     def program(fact, dims):
         with obs_span("fct.job1"):

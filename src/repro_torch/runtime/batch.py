@@ -15,11 +15,9 @@ Padding is semantics-free by construction:
   * extra ``L`` columns hold PAD_ID, which the histogram never counts,
   * a larger key ``domain`` only grows the num-arrays' zero tail.
 
-``stack_group`` stacks same-signature plans' host arrays along a leading CN
-axis ``[N, P, ...]`` for the engine's host-stacked families
-(``fct_batched``, ``fct_batched_percn``); ``pad_cn_axis`` pads that axis
-with null plans.  These stay host numpy, in the reference's dtypes, so the
-shipped byte counts equal the reference's.
+``pad_plan_arrays`` pads one plan's host arrays to its signature, in the
+reference's dtypes, for the two-job path (``core/fct.py``); the engine's
+groups read store-resident columns padded the same way (``store.py``).
 
 Beside the shape lattice, a signature carries the query's
 :class:`~repro_torch.core.accum.AccumPolicy` — the device accumulation width
@@ -159,31 +157,3 @@ def group_plans(plans: Sequence[CNPlan], bucket: bool = True,
     """As ``group_plan_indices``, materialized to the plans themselves."""
     return [(sig, [plans[i] for i in idxs])
             for sig, idxs in group_plan_indices(plans, bucket, accum)]
-
-
-def stack_group(plans: Sequence[CNPlan], sig: PlanSignature):
-    """Stack same-signature plans along a leading CN axis: every leaf goes
-    [P, ...] -> [N, P, ...]."""
-    padded = [pad_plan_arrays(p, sig) for p in plans]
-    fact = {k: np.stack([f[k] for f, _ in padded])
-            for k in ("text", "keys", "send")}
-    dims = [{k: np.stack([d[j][k] for _, d in padded])
-             for k in ("text", "keys", "send")} for j in range(sig.m)]
-    return fact, dims
-
-
-def pad_cn_axis(fact, dims, n_stack: int):
-    """Pad the leading CN axis of a stacked group to ``n_stack`` with null
-    plans: an all ``-1`` send table routes nothing, so a padded CN's masks,
-    num-arrays, volumes and histogram are exactly zero (same invariants as
-    the per-dim padding above)."""
-    def pad(rel):
-        n = rel["text"].shape[0]
-        if n == n_stack:
-            return rel
-        fills = {"text": PAD_ID, "keys": 0, "send": -1}
-        return {k: np.concatenate(
-                    [v, np.full((n_stack - n,) + v.shape[1:], fills[k],
-                                v.dtype)])
-                for k, v in rel.items()}
-    return pad(fact), [pad(d) for d in dims]

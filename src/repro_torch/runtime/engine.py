@@ -5,8 +5,8 @@ planning:
 
   1. bucket every plan's data-dependent dims to a PlanSignature (batch.py),
   2. group same-signature CNs along a leading CN axis,
-  3. run ONE device program per group — the MR¹+MR² body over the CN axis
-     (core/fct.py), the ``[N, vocab]`` histograms summed on device, and
+  3. run ONE device program per group — routing, MR¹ and MR² over the CN
+     axis (core/fct.py), the ``[N, vocab]`` histograms summed on device, and
      cross-worker aggregation in one of the reference's two layouts: a sum
      over the worker axis (psum), or that sum padded to a multiple of P on
      multi-worker meshes (the reduce-scatter layout, ``vocab_padded``), so
@@ -16,26 +16,27 @@ planning:
   4. memoize the built programs in an ExecutableCache keyed by
      (family, signature, N, mesh, aggregation), so warm queries build
      nothing,
-  5. with a session's RelationStore (store.py), gather the tuple-set
-     ``text``/``keys`` columns from DEVICE-RESIDENT tensors, and take each
-     plan's send tables and fact key-column indices from the device copies
-     its routes keep (uploaded at the plan's first dispatch), stacked on the
-     device: a memoized plan's dispatch ships nothing.  Without a store,
-     the host pads and stacks the columns and the send tables and ships
-     them with every dispatch (the reference's pre-store engine, kept as
-     the equivalence baseline and for storeless callers),
-  6. on CUDA, replay a store-path group whose inputs are the very tensors
-     of an earlier dispatch from three CUDA graphs — routing, MR¹, MR² —
+  5. gather the tuple-set ``text``/``keys`` columns from a RelationStore's
+     DEVICE-RESIDENT tensors (store.py), and take each plan's send tables
+     and fact key-column indices from the device copies its routes keep
+     (uploaded at the plan's first dispatch): a memoized plan's dispatch
+     ships nothing.  A caller without a store (``store=None``) gets a
+     store of its own for the call, so its columns upload with the call
+     and die with it,
+  6. on CUDA, replay a group whose inputs are the very tensors of an
+     earlier dispatch from three CUDA graphs — routing, MR¹, MR² —
      captured at its second dispatch (graphs.py): the same kernels, three
      launches from the host.
 
-Four program families share one body (``_vmapped_cns``): ``fct_store`` and
-``fct_batched`` (host-stacked) sum the CN axis (single-query ``query``);
-``fct_store_percn`` and ``fct_batched_percn`` keep it, with the CN axis
-rounded up to a multiple of ``CN_BUCKET_MIN`` by null CNs when bucketing, so
-CNs of different queries can share one dispatch (``query_batch``).
+A group's program is three stages (:func:`_build_stages`), run in order by
+one loop in :meth:`FCTEngine._dispatch_group`, eagerly or as graph
+replays.  Two histogram families share them: ``fct_store`` sums the CN
+axis (single-query ``query``); ``fct_store_percn`` keeps it, with the CN
+axis rounded up to a multiple of ``CN_BUCKET_MIN`` by null CNs when
+bucketing, so CNs of different queries can share one dispatch
+(``query_batch``).
 
-A fifth family, ``fct_topk``, finalizes on the device: the aggregated
+A third family, ``fct_topk``, finalizes on the device: the aggregated
 histogram stays device-resident and only O(k) candidates (counts, term ids,
 a wrap flag) reach the host (``dispatch_topk`` / ``collect_topk``).
 
@@ -55,20 +56,19 @@ policy width.  Under
 in int64.
 
 Tracing.  Each dispatched group is an ``engine.dispatch_group`` obs span on
-the active trace (args ``path``, ``family``, ``n_cns``, ``n_devices`` and
-``built``, true when the dispatch built its program), with children
-``store.group_args`` (store path; args ``send_bytes``, the bytes its
-first-use uploads shipped, and ``send_hits``) or ``engine.host_stack`` (host
-path), ``engine.upload`` (the host path's copies; on the store path it only
-records the first stage event) and ``fct.route`` / ``fct.mr1`` /
-``fct.mr2`` (core/fct.py): host time, all of it; a replayed group opens
-the same three spans around its three graph launches.  The group span's
-``graph`` arg says how the group ran: ``eager``, ``capture`` (captured,
-then replayed) or ``replay``.  Device time per stage comes from four CUDA
-events a group, recorded on the current stream after the uploads and after
-each stage (between the replays of a replayed group) when the caller
-passes a ``stages`` list, and resolved after the collection's wait
-(:meth:`FCTEngine.device_stage_ms`).  This module also installs the obs
+the active trace (args ``path``, always ``store``, ``family``, ``n_cns``,
+``n_devices`` and ``built``, true when the dispatch built its program),
+with children ``store.group_args`` (args ``send_bytes``, the bytes its
+first-use uploads shipped, and ``send_hits``), ``engine.upload`` (``bytes``
+0: it only records the first stage event; ``bench/`` still reads it) and
+``fct.route`` / ``fct.mr1`` / ``fct.mr2``, one around each stage, eager or
+replayed: host time, all of it.  The group span's ``graph`` arg says how
+the group ran: ``eager``, ``capture`` (captured, then replayed) or
+``replay``.  Device time per stage comes from four CUDA events a group,
+recorded on the current stream before the first stage and after each
+stage when the caller passes a ``stages`` list, and resolved after the
+collection's wait (:meth:`FCTEngine.device_stage_ms`); the MR² stage ends
+after the aggregation.  This module also installs the obs
 span hook: while a torch profiler records, every obs span opens a
 ``record_function`` range of its name, so the profile shows the program's
 spans on its own clock beside the kernels they launch.
@@ -76,6 +76,7 @@ spans on its own clock beside the kernels they launch.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -83,8 +84,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.accum import AccumPolicy
-from repro_torch.core.fct import (_cn_extent, _device_fct_local, _mark,
-                                  _mr1_volumes, _mr2_histograms, _route_cn)
+from repro_torch.core.fct import _mr1_volumes, _mr2_histograms, _route_cn
 from repro_torch.core.plan import CNPlan
 from repro_torch.launch.mesh import (VirtualMesh, all_gather, psum,
                                      psum_scatter, vocab_padded)
@@ -92,8 +92,7 @@ from repro_torch.obs import default_registry, set_span_hook
 from repro_torch.obs import span as obs_span
 from repro_torch.runtime.batch import (BUCKET_MIN, PlanSignature, RelationSig,
                                        bucket_pow2, group_plan_indices,
-                                       pad_cn_axis, plan_signature,
-                                       stack_group)
+                                       plan_signature)
 from repro_torch.runtime.cache import ExecutableCache, default_cache
 from repro_torch.runtime.graphs import CAPTURE, EAGER, REPLAY, GraphCache
 from repro_torch.runtime.store import RelationStore, store_group_args
@@ -111,8 +110,8 @@ _TOPK_REL = RelationSig(rows=BUCKET_MIN, cap=BUCKET_MIN, text_len=BUCKET_MIN)
 #: the device-stage keys :meth:`FCTEngine.device_stage_ms` fills, in the
 #: order of the events that bound them
 DEVICE_STAGES = ("device_route_ms", "device_mr1_ms", "device_mr2_ms")
-#: the obs spans of the body's stages (core/fct.py), opened around the
-#: matching graph launches of a replayed group
+#: the obs spans of a group's stages, opened around each stage's eager run
+#: or graph replay
 STAGE_SPANS = ("fct.route", "fct.mr1", "fct.mr2")
 
 _PROFILER = torch.autograd.profiler
@@ -133,8 +132,8 @@ set_span_hook(_profiler_range)
 
 class _GroupMarks:
     """Timing events of one dispatched group, taken from the engine's pool
-    as they are recorded: after the uploads, after routing, after MR¹,
-    after MR²."""
+    as they are recorded: before routing, after routing, after MR¹, after
+    MR²."""
 
     __slots__ = ("pool", "events")
 
@@ -149,6 +148,12 @@ class _GroupMarks:
             ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         self.events.append(ev)
+
+
+def _mark(marks: Optional[_GroupMarks]) -> None:
+    """Record the next stage boundary on the device stream, if asked."""
+    if marks is not None:
+        marks.record()
 
 
 def _mr2_token_slots(sig: PlanSignature, n_stack: int) -> int:
@@ -167,35 +172,22 @@ def _route_slots(sig: PlanSignature, n_stack: int) -> int:
     return n_stack * P * P * sum(r.cap for r in (sig.fact,) + tuple(sig.dims))
 
 
-def _vmapped_cns(fact, dims, sig: PlanSignature, reduce_cns: bool,
-                 reduce_scatter: bool, marks=None) -> torch.Tensor:
-    """Body shared by every histogram family: MR¹+MR² over the leading CN
-    axis, then the cross-worker aggregation.
+def _aggregate(hists: torch.Tensor, sig: PlanSignature, reduce_cns: bool,
+               reduce_scatter: bool) -> torch.Tensor:
+    """The cross-CN sum and the cross-worker aggregation of a group's ``[N,
+    vocab]`` histograms.
 
     The histograms come back already summed over the virtual mesh's worker
     axis (core.fct folds the psum into the histogram's row axis), so the
     aggregation is one named collective, :func:`psum` or
-    :func:`psum_scatter` (``launch/mesh.py``).  The
-    cross-CN group sum accumulates in the signature's AccumPolicy dtype —
-    explicitly, so individually-fine int32 CNs summing past 2^31 wrap (and
-    are caught on collection) under INT32_CHECKED and stay exact under
-    INT64_EXACT.  Under ``reduce_scatter`` the vocab axis is padded to a
-    multiple of P, the layout of the reference's ``psum_scatter`` output
-    gathered to the host; otherwise it is the reference's psum layout, the
-    whole vocab.  Integer addition is associative, so both give
-    bit-identical totals.  ``marks`` goes to the body's stage events."""
-    hists = _device_fct_local(fact, dims,
-                              domains=tuple(d.domain for d in sig.dims),
-                              vocab=sig.vocab, accum=sig.accum,
-                              marks=marks)                     # [N, vocab]
-    return _aggregate(hists, sig, reduce_cns, reduce_scatter)
-
-
-def _aggregate(hists: torch.Tensor, sig: PlanSignature, reduce_cns: bool,
-               reduce_scatter: bool) -> torch.Tensor:
-    """The cross-CN sum (in the policy dtype) and the cross-worker
-    aggregation of ``[N, vocab]`` histograms, as :func:`_vmapped_cns`
-    describes."""
+    :func:`psum_scatter` (``launch/mesh.py``).  The cross-CN sum
+    accumulates in the signature's AccumPolicy dtype — explicitly, so
+    individually-fine int32 CNs summing past 2^31 wrap (and are caught on
+    collection) under INT32_CHECKED and stay exact under INT64_EXACT.
+    Under ``reduce_scatter`` the vocab axis is padded to a multiple of P,
+    the layout of the reference's ``psum_scatter`` output gathered to the
+    host; otherwise it is the reference's psum layout, the whole vocab.
+    Integer addition is associative, so both give bit-identical totals."""
     acc = sig.accum.dtype
     out = hists.sum(dim=0, dtype=acc) if reduce_cns else hists.to(acc)
     if reduce_scatter:
@@ -203,66 +195,20 @@ def _aggregate(hists: torch.Tensor, sig: PlanSignature, reduce_cns: bool,
     return psum(out)
 
 
-def _build_batched_fn(sig: PlanSignature, mesh: VirtualMesh,
-                      reduce_cns: bool = True, reduce_scatter: bool = False):
-    """Program over HOST-STACKED relations for one signature.
+def _build_stages(sig: PlanSignature, reduce_cns: bool,
+                  reduce_scatter: bool):
+    """The program of one signature group as its three stages, over
+    ``store_group_args``' device-resident arguments (``core/fct.py``):
 
-    Inputs per relation are numpy ``text [N, P, S, L]``, ``keys [N, P, S]``
-    (dim) or ``[N, P, S, m]`` (fact, the CN's own columns) and ``send [N,
-    P, P, C]`` (``runtime.batch.stack_group``); the program uploads them
-    (pageable copies, as the reference ships its host arrays, inside one
-    ``engine.upload`` span) and runs the same body as the store family, so
-    the outputs are bit-identical.  ``marks`` (optional) is the group's
-    stage events; the first is recorded after the uploads.
+      * ``route(fact, dims)`` -> the routed relations,
+      * ``mr1(routed)`` -> their volumes,
+      * ``mr2(routed, volumes)`` -> the group's output: the histograms
+        with :func:`_aggregate`.
 
     ``reduce_cns=True``  -> freq[vocab]     (CN axis summed on device)
     ``reduce_cns=False`` -> freq[N, vocab]  (per-CN totals)
     """
-    device = mesh.device
-
-    def upload(rel):
-        text = torch.from_numpy(rel["text"]).to(device)
-        keys = torch.from_numpy(rel["keys"]).to(device)
-        # per-CN views of the stacked upload, the layout _route takes
-        return {"text": text.unbind(0), "keys": keys.unbind(0),
-                "send": torch.from_numpy(rel["send"]).to(device)}
-
-    def program(fact, dims, marks=None):
-        with obs_span("engine.upload") as sp:
-            sp.args["bytes"] = sum(v.nbytes for rel in (fact, *dims)
-                                   for v in rel.values())
-            fact_d, dims_d = upload(fact), [upload(d) for d in dims]
-            _mark(marks)
-        return _vmapped_cns(fact_d, dims_d, sig, reduce_cns, reduce_scatter,
-                            marks)
-
-    return program
-
-
-def _build_store_fn(sig: PlanSignature, mesh: VirtualMesh, n_stack: int,
-                    reduce_cns: bool = True, reduce_scatter: bool = False):
-    """Program over STORE-RESIDENT relation columns for one signature.
-
-    Inputs are ``store_group_args``'s, all on the device: per relation
-    ``n_stack`` column tensors (one per CN slot, each ``[P, S, ...]`` from
-    the session's RelationStore) and the stacked ``[N, P, P, C]`` send
-    tables; the fact additionally carries per-CN key-column indices that
-    gather each CN's columns out of the full-width stored key matrix.  The
-    program uploads nothing: its ``engine.upload`` span (``bytes`` 0) only
-    records the first stage event, so the span tree keeps the host-stacked
-    family's shape.  ``marks`` as for the host-stacked family.
-
-    ``program.stages`` is the same body as three callables for graph
-    capture (graphs.py): ``route(fact, dims)``, ``mr1(routed)``, and
-    ``mr2(routed, volumes)`` with the aggregation.
-    """
     domains = tuple(d.domain for d in sig.dims)
-
-    def program(fact, dims, marks=None):
-        with obs_span("engine.upload", bytes=0):
-            _mark(marks)
-        return _vmapped_cns(fact, dims, sig, reduce_cns, reduce_scatter,
-                            marks)
 
     def mr1(routed):
         return _mr1_volumes(*routed, domains, sig.accum)
@@ -271,8 +217,19 @@ def _build_store_fn(sig: PlanSignature, mesh: VirtualMesh, n_stack: int,
         return _aggregate(_mr2_histograms(*routed, *vols, sig.vocab), sig,
                           reduce_cns, reduce_scatter)
 
-    program.stages = (_route_cn, mr1, mr2)
-    return program
+    return _route_cn, mr1, mr2
+
+
+def _stage_steps(stages, fact, dims):
+    """Runs a group's ``(route, mr1, mr2)`` stages in order, one a
+    ``next()``: yields the routed relations, their volumes, then the
+    group's output."""
+    route, mr1, mr2 = stages
+    routed = route(fact, dims)
+    yield routed
+    vols = mr1(routed)
+    yield vols
+    yield mr2(routed, vols)
 
 
 def topk_signature(vocab: int, n_devices: int, accum: AccumPolicy,
@@ -414,13 +371,12 @@ class FCTEngine:
     ``batch=False`` dispatches one program per CN (still cached/bucketed);
     ``bucket=False`` keys on exact shapes (still cached/batched).
 
-    ``bytes_shipped`` counts host→device argument bytes per dispatch — on
-    the store path only a plan's first-use send tables and key-column
-    indices, counted as ``send_uploads`` (tables uploaded) beside
-    ``send_hits`` (tables found on the device);
-    ``column_bytes_shipped`` is the text/keys portion of that — zero on the
-    store path, where columns are device-resident (store uploads are
-    accounted by the RelationStore itself); ``device_to_host_bytes`` counts
+    ``bytes_shipped`` counts host→device argument bytes per dispatch — a
+    plan's first-use send tables and key-column indices, counted as
+    ``send_uploads`` (tables uploaded) beside ``send_hits`` (tables found
+    on the device), and the top-k family's keyword and exclusion vectors;
+    column uploads are the RelationStore's (``store.upload_bytes``), a
+    storeless call's included; ``device_to_host_bytes`` counts
     collection; ``groups_pruned`` / ``pruned_rows`` count the signature
     groups (and their routed fact rows) the top-k family skipped;
     ``fct_count_tokens`` counts the token slots MR² hands to
@@ -429,7 +385,7 @@ class FCTEngine:
     launches (``N·P·P·cap`` of every relation, as bucketed) beside
     ``route_rows``, the rows the group's plans send (``shuffle_rows``).
     ``graph_eager``, ``graph_captures`` and ``graph_replays`` count the
-    store-path groups that ran eagerly, were captured as CUDA graphs (and
+    groups that ran eagerly, were captured as CUDA graphs (and
     replayed once), and were replayed (:attr:`graphs`, graphs.py).
 
     ``reduce_scatter=True`` (default) returns multi-worker aggregates in the
@@ -451,8 +407,6 @@ class FCTEngine:
         self._c_batches = self.metrics.counter("engine.batches_run")
         self._c_cns = self.metrics.counter("engine.cns_run")
         self._c_bytes = self.metrics.counter("engine.bytes_shipped")
-        self._c_column_bytes = self.metrics.counter(
-            "engine.column_bytes_shipped")
         self._c_d2h = self.metrics.counter("engine.device_to_host_bytes")
         self._c_groups_pruned = self.metrics.counter("engine.groups_pruned")
         self._c_pruned_rows = self.metrics.counter("engine.pruned_rows")
@@ -463,13 +417,13 @@ class FCTEngine:
         # those later dispatches found on the device
         self._c_send_uploads = self.metrics.counter("engine.send_uploads")
         self._c_send_hits = self.metrics.counter("engine.send_hits")
-        # store-path groups by how they ran (graphs.py)
+        # groups by how they ran (graphs.py)
         self._c_graph = {
             mode: self.metrics.counter(name) for mode, name in (
                 (EAGER, "engine.graph_eager"),
                 (CAPTURE, "engine.graph_captures"),
                 (REPLAY, "engine.graph_replays"))}
-        #: the store-path groups' CUDA graphs, by input identity
+        #: the groups' CUDA graphs, by input identity
         self.graphs = GraphCache()
         # recycled CUDA timing events of the device-stage timers
         self._events: collections.deque = collections.deque()
@@ -477,10 +431,6 @@ class FCTEngine:
     @property
     def batches_run(self) -> int:
         return self._c_batches.value
-
-    @property
-    def column_bytes_shipped(self) -> int:
-        return self._c_column_bytes.value
 
     def _reduce_scatters(self, n_devices: int) -> bool:
         """Whether aggregates over ``n_devices`` workers come in the
@@ -497,24 +447,22 @@ class FCTEngine:
         return group_plan_indices(plans, self.bucket, accum)
 
     def _dispatch(self, sig: PlanSignature, group: Sequence[CNPlan],
-                  mesh: VirtualMesh, reduce_cns: bool,
-                  store: Optional[RelationStore] = None,
+                  mesh: VirtualMesh, reduce_cns: bool, store: RelationStore,
                   stages: Optional[list] = None):
         """Span shell around :meth:`_dispatch_group`: one
         ``engine.dispatch_group`` span per launch on the active trace (a
         recording torch profiler sees it as a range of the same name, via
         the obs span hook this module installs)."""
-        path = "store" if store is not None else "host"
         family = "sum" if reduce_cns else "percn"
-        with obs_span("engine.dispatch_group", n_cns=len(group), path=path,
+        with obs_span("engine.dispatch_group", n_cns=len(group), path="store",
                       family=family, n_devices=sig.n_devices) as group_span:
             return self._dispatch_group(sig, group, mesh, reduce_cns, store,
                                         stages, group_span)
 
     def _dispatch_group(self, sig: PlanSignature, group: Sequence[CNPlan],
                         mesh: VirtualMesh, reduce_cns: bool,
-                        store: Optional[RelationStore] = None,
-                        stages: Optional[list] = None, group_span=None):
+                        store: RelationStore, stages: Optional[list] = None,
+                        group_span=None):
         """Enqueue one group on the device; returns the LAZY result tensor
         (callers block via ``_collect``).
 
@@ -522,15 +470,13 @@ class FCTEngine:
         multiple of CN_BUCKET_MIN (zero-contribution null-plan padding), so
         batch compositions share programs; the summed family keeps exact N.
 
-        With a ``store``, relation columns, send tables and fact key-column
-        indices are all device-resident, and only a plan's first dispatch
-        ships its tables (``store_group_args``).  Without one, the host pads
-        and stacks every column (``stack_group``) and the program uploads
-        them.
-
-        On a CUDA mesh a store-path group whose inputs are the very
-        tensors of an earlier dispatch is captured as three CUDA graphs at
-        its second dispatch and replayed from then on (:attr:`graphs`).
+        Relation columns, send tables and fact key-column indices are all
+        device-resident, and only a plan's first dispatch ships its tables
+        (``store_group_args``).  The group's three stages then run in one
+        loop, each inside its ``fct.*`` span and followed by its stage
+        event: eagerly, or, on a CUDA mesh when the inputs are the very
+        tensors of an earlier dispatch, as CUDA graphs captured at the
+        second such dispatch and replayed from then on (:attr:`graphs`).
 
         ``stages`` (a list) asks for the group's device-stage events on
         CUDA: four are recorded and appended to it as one entry.
@@ -539,58 +485,44 @@ class FCTEngine:
         n_stack = len(group)
         if not reduce_cns and self.bucket:
             n_stack = -(-n_stack // CN_BUCKET_MIN) * CN_BUCKET_MIN
+        if store.mesh != mesh:
+            raise ValueError("the store is bound to another mesh")
+        with obs_span("store.group_args", n_stack=n_stack) as ga:
+            args = store_group_args(store, group, sig, n_stack)
+            ga.args["send_bytes"] = args.shipped
+            ga.args["send_hits"] = args.send_hits
         # the aggregation layout rides the cache key so both program
         # variants can coexist
         rs = self._reduce_scatters(sig.n_devices)
-        agg = "rs" if rs else "psum"
-        graph, entry = EAGER, None
-        if store is not None:
-            if store.mesh != mesh:
-                raise ValueError("the store is bound to another mesh")
-            with obs_span("store.group_args", n_stack=n_stack) as ga:
-                args = store_group_args(store, group, sig, n_stack)
-                ga.args["send_bytes"] = args.shipped
-                ga.args["send_hits"] = args.send_hits
-            fact, dims = args.fact, args.dims
-            kind = "fct_store" if reduce_cns else "fct_store_percn"
-            key = (kind, sig, n_stack, mesh, agg)
-            fn, built = self.cache.fetch(
-                key, lambda: _build_store_fn(sig, mesh, n_stack,
-                                             reduce_cns=reduce_cns,
-                                             reduce_scatter=rs))
-            self._c_bytes.inc(args.shipped)
-            self._c_send_uploads.inc(args.send_uploads)
-            self._c_send_hits.inc(args.send_hits)
-            graph, entry = self.graphs.decide(key, mesh.device, args.inputs)
-            self._c_graph[graph].inc()
-        else:
-            with obs_span("engine.host_stack", n_stack=n_stack):
-                fact, dims = stack_group(group, sig)
-                if n_stack > len(group):
-                    fact, dims = pad_cn_axis(fact, dims, n_stack)
-            kind = "fct_batched" if reduce_cns else "fct_batched_percn"
-            key = (kind, sig, n_stack, mesh, agg)
-            fn, built = self.cache.fetch(
-                key, lambda: _build_batched_fn(sig, mesh,
-                                               reduce_cns=reduce_cns,
-                                               reduce_scatter=rs))
-            shipped = sum(v.nbytes for v in fact.values()) + sum(
-                v.nbytes for d in dims for v in d.values())
-            columns = shipped - fact["send"].nbytes - sum(
-                d["send"].nbytes for d in dims)
-            self._c_bytes.inc(shipped)
-            self._c_column_bytes.inc(columns)
+        kind = "fct_store" if reduce_cns else "fct_store_percn"
+        key = (kind, sig, n_stack, mesh, "rs" if rs else "psum")
+        program, built = self.cache.fetch(
+            key, lambda: _build_stages(sig, reduce_cns, rs))
+        self._c_bytes.inc(args.shipped)
+        self._c_send_uploads.inc(args.send_uploads)
+        self._c_send_hits.inc(args.send_hits)
+        graph, entry = self.graphs.decide(key, mesh.device, args.inputs)
+        self._c_graph[graph].inc()
         if group_span is not None:
             group_span.args["built"] = built
             group_span.args["graph"] = graph
         marks = (_GroupMarks(self._events)
                  if stages is not None and mesh.device.type == "cuda"
                  else None)
-        if graph == EAGER:
-            out = fn(fact, dims, marks)
-        else:
-            out = self._replay(graph, entry, fn.stages, fact, dims,
-                               mesh.device, marks)
+        steps = _stage_steps(program, args.fact, args.dims)
+        rows = n_stack * sig.n_devices ** 2 * sig.fact.cap
+        # a capture and the replays (output copy included) hold the lock
+        with (self.graphs.lock if graph != EAGER
+              else contextlib.nullcontext()):
+            if graph == CAPTURE:
+                self.graphs.capture_group(entry, steps, mesh.device)
+            with obs_span("engine.upload", bytes=0):
+                _mark(marks)
+            for i, name in enumerate(STAGE_SPANS):
+                with obs_span(name, n_cns=n_stack, rows=rows):
+                    out = (next(steps) if graph == EAGER
+                           else entry.graphs.replay(i))
+                    _mark(marks)
         if marks is not None:
             stages.append(marks.events)
         self._c_batches.inc()
@@ -600,22 +532,20 @@ class FCTEngine:
         self._c_route_rows.inc(sum(p.shuffle_rows for p in group))
         return out
 
-    def _replay(self, graph: str, entry, stages, fact, dims, device,
-                marks) -> torch.Tensor:
-        """Captures the group's graphs first if ``graph`` is CAPTURE, then
-        launches them back to back, each inside its stage's span and
-        followed by its stage event; returns the output's copy."""
-        n_cns, rows = _cn_extent(fact["send"])
-        with self.graphs.lock:
-            if graph == CAPTURE:
-                self.graphs.capture_group(entry, stages, fact, dims, device)
-            with obs_span("engine.upload", bytes=0):
-                _mark(marks)
-            for i, name in enumerate(STAGE_SPANS):
-                with obs_span(name, n_cns=n_cns, rows=rows):
-                    out = entry.graphs.replay(i)
-                    _mark(marks)
-        return out
+    @contextlib.contextmanager
+    def _call_store(self, store: Optional[RelationStore], mesh: VirtualMesh):
+        """``store``, or for a storeless call a RelationStore of the call's
+        own on the engine's metrics (its column uploads count in
+        ``store.upload_bytes``), emptied when the call ends: its columns
+        live as long as the call."""
+        if store is not None:
+            yield store
+            return
+        own = RelationStore(mesh, metrics=self.metrics)
+        try:
+            yield own
+        finally:
+            own.clear()
 
     def device_stage_ms(self, stages: list) -> Dict[str, float]:
         """Device milliseconds of routing, MR¹ and MR² summed over the
@@ -658,20 +588,20 @@ class FCTEngine:
         ``collect_total`` / ``collect_individual``.  ``individual=True``
         keeps the per-CN output axis so CNs of different queries can share
         a dispatch.  ``store`` (a RelationStore bound to this mesh) holds
-        the relation columns; ``None`` takes the host-stacked families,
-        which ship every column with the dispatch.  ``accum`` pins the
+        the relation columns; ``None`` uploads them to a store of the
+        call's own, dropped when the call ends.  ``accum`` pins the
         AccumPolicy (default int32-checked).  ``stages`` collects the
         groups' device-stage events on CUDA (:meth:`device_stage_ms`)."""
         if not plans:
             raise ValueError("dispatch_plans needs at least one plan")
         pending = []
-        for sig, idxs in self._group(plans, accum):
-            lazy = self._dispatch(sig, [plans[i] for i in idxs], mesh,
-                                  reduce_cns=not individual, store=store,
-                                  stages=stages)
-            if mesh.device.type == "cuda":
-                lazy = _to_host(lazy)
-            pending.append((idxs, lazy))
+        with self._call_store(store, mesh) as store:
+            for sig, idxs in self._group(plans, accum):
+                lazy = self._dispatch(sig, [plans[i] for i in idxs], mesh,
+                                      not individual, store, stages)
+                if mesh.device.type == "cuda":
+                    lazy = _to_host(lazy)
+                pending.append((idxs, lazy))
         return pending
 
     def collect_total(self, pending, vocab: int) -> np.ndarray:
@@ -747,8 +677,7 @@ class FCTEngine:
         on the device; ``host_extra`` is an optional device-resident
         histogram in the same layout added to the group total — sessions
         use it for map-only single-relation CNs, which have no routed plans.
-        ``store=None`` dispatches the groups through the host-stacked family.
-        ``stages`` as for :meth:`dispatch_plans`.
+        ``store`` and ``stages`` as for :meth:`dispatch_plans`.
         """
         if not plans:
             raise ValueError("dispatch_topk needs at least one plan")
@@ -789,25 +718,28 @@ class FCTEngine:
         total = host_extra
         groups_run = 0
         kk = min(k, vocab)
-        for pos, g in enumerate(run_list):
-            sig, idxs = groups[g]
-            lazy = self._dispatch(sig, [plans[i] for i in idxs], mesh,
-                                  reduce_cns=True, store=store, stages=stages)
-            total = lazy if total is None else total + lazy
-            groups_run += 1
-            rest = run_list[pos + 1:]
-            if prune == "threshold" and rest and kk + 1 <= tsig.k_bucket:
-                # O(k) probe of the running counts: prune the suffix once
-                # even its combined mass cannot displace the k-th count
-                head = topk_fn(total, kw, excl)[0].cpu().numpy()
-                self._c_d2h.inc(head.nbytes)
-                b_rest = sum(bounds[r] for r in rest)
-                if kk < len(head) and \
-                        float(head[kk - 1]) > float(head[kk]) + b_rest:
-                    for r in rest:
-                        g_pruned += 1
-                        rows_pruned += self._plan_rows(plans, groups[r][1])
-                    break
+        with self._call_store(store, mesh) as store:
+            for pos, g in enumerate(run_list):
+                sig, idxs = groups[g]
+                lazy = self._dispatch(sig, [plans[i] for i in idxs], mesh,
+                                      True, store, stages)
+                total = lazy if total is None else total + lazy
+                groups_run += 1
+                rest = run_list[pos + 1:]
+                if prune == "threshold" and rest and kk + 1 <= tsig.k_bucket:
+                    # O(k) probe of the running counts: prune the suffix
+                    # once even its combined mass cannot displace the k-th
+                    # count
+                    head = topk_fn(total, kw, excl)[0].cpu().numpy()
+                    self._c_d2h.inc(head.nbytes)
+                    b_rest = sum(bounds[r] for r in rest)
+                    if kk < len(head) and \
+                            float(head[kk - 1]) > float(head[kk]) + b_rest:
+                        for r in rest:
+                            g_pruned += 1
+                            rows_pruned += self._plan_rows(plans,
+                                                           groups[r][1])
+                        break
 
         with obs_span("engine.topk_finalize", k=k, k_eff=k_effective(tsig),
                       n_groups=len(groups), groups_pruned=g_pruned):
@@ -861,16 +793,15 @@ class FCTEngine:
 
     def stats(self) -> dict:
         out = self.cache.stats()
-        (batches, cns, shipped, columns, d2h, g_pruned,
-         rows_pruned, tokens, send_uploads, send_hits, route_slots,
-         route_rows, g_eager, g_captures, g_replays) = self.metrics.values(
-            self._c_batches, self._c_cns, self._c_bytes,
-            self._c_column_bytes, self._c_d2h, self._c_groups_pruned,
-            self._c_pruned_rows, self._c_fct_tokens, self._c_send_uploads,
-            self._c_send_hits, self._c_route_slots, self._c_route_rows,
-            *self._c_graph.values())
+        (batches, cns, shipped, d2h, g_pruned, rows_pruned, tokens,
+         send_uploads, send_hits, route_slots, route_rows, g_eager,
+         g_captures, g_replays) = self.metrics.values(
+            self._c_batches, self._c_cns, self._c_bytes, self._c_d2h,
+            self._c_groups_pruned, self._c_pruned_rows, self._c_fct_tokens,
+            self._c_send_uploads, self._c_send_hits, self._c_route_slots,
+            self._c_route_rows, *self._c_graph.values())
         out.update(batches_run=batches, cns_run=cns, bytes_shipped=shipped,
-                   column_bytes_shipped=columns, device_to_host_bytes=d2h,
+                   device_to_host_bytes=d2h,
                    groups_pruned=g_pruned, pruned_rows=rows_pruned,
                    fct_count_tokens=tokens, send_uploads=send_uploads,
                    send_hits=send_hits, route_slots=route_slots,

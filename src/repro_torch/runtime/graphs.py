@@ -1,13 +1,13 @@
-"""CUDA graphs of the store path's repeating signature groups.
+"""CUDA graphs of the engine's repeating signature groups.
 
-A store-path group's device body (``core/fct.py``, run by the engine's
-``fct_store`` families) is hundreds of small aten launches and one
-``fct_count`` launch per relation, enqueued from Python one by one.  Its
-inputs are resident tensors that come back dispatch after dispatch: the
-store's columns, each memoized plan's send tables and key-column indices,
-and the null CN send table.  :class:`GraphCache` captures such a group's
-body as three CUDA graphs, one per stage (routing, MR¹, and MR² with the
-cross-CN and worker aggregation), so that a warm dispatch enqueues three
+A group's device program (``core/fct.py``, run by the engine's
+``fct_store`` families in three stages) is hundreds of small aten launches
+and one ``fct_count`` launch per relation, enqueued from Python one by
+one.  Its inputs are resident tensors that come back dispatch after
+dispatch: the store's columns, each memoized plan's send tables and
+key-column indices, and the null CN send table.  :class:`GraphCache` captures such a group's
+three stages (routing, MR¹, and MR² with the cross-CN and worker
+aggregation) as three CUDA graphs, so that a warm dispatch enqueues three
 graph launches and one copy instead.  The kernels are the same, in the same
 order: replayed answers are bit-identical to eager ones.
 
@@ -23,7 +23,8 @@ a plan dropped and planned anew, a batch of another composition) run
 eagerly.  Identity is held by weak references, never by data pointers, so
 a freed and reused address cannot match, and an entry is dropped, graphs
 and all, when one of its inputs dies.  Only CUDA devices capture
-(``device_types``); the host-stacked families never ask.
+(``device_types``); a storeless call's store of its own dies with the
+call, so its groups never capture.
 
 **Memory.**  Every capture of a cache goes into one memory pool per device
 (:class:`CudaCapture`).  A group keeps only its final output: the routed
@@ -36,8 +37,8 @@ The copy takes the answer out of the pool right after the MR² replay, so a
 later replay of the same group cannot overwrite an answer not yet
 collected.
 
-**Counts.**  Capturing launches nothing, yet the body's Python still bumps
-``fct_count``'s ``LAUNCHES`` and the ops' ``PATH_COUNTS`` and tallies its
+**Counts.**  Capturing launches nothing, yet the stages' Python still bumps
+``fct_count``'s ``LAUNCHES`` and the ops' ``PATH_COUNTS`` and tallies their
 collectives.  The capture holds those back (``kernels/_build.held_bumps``
 and a census of its own) and each replay adds them once
 (:meth:`GroupGraphs.replay`), so the counts stay counts of work run.
@@ -46,15 +47,17 @@ from __future__ import annotations
 
 import threading
 import weakref
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.launch.mesh import add_to_census, collective_census
 
-#: how a store-path group ran: the ``graph`` arg of ``engine.dispatch_group``
+#: how a group ran: the ``graph`` arg of ``engine.dispatch_group``
 EAGER, CAPTURE, REPLAY = "eager", "capture", "replay"
+#: stages of a group: routing, MR¹, MR²
+N_STAGES = 3
 
 
 class CudaCapture:
@@ -99,24 +102,24 @@ class CudaCapture:
 
 
 class GroupGraphs:
-    """A group's captured stages, the last one's output, and what one run
-    of the body counts: held-back bumps and collectives."""
+    """A group's stages captured one graph each, the last one's output, and
+    what one run of the stages counts: held-back bumps and collectives."""
 
-    __slots__ = ("stages", "out", "bumps", "collectives")
+    __slots__ = ("graphs", "out", "bumps", "collectives")
 
-    def __init__(self, stages: Sequence, out: torch.Tensor, bumps,
+    def __init__(self, graphs: Sequence, out: torch.Tensor, bumps,
                  collectives: Dict[str, int]) -> None:
-        self.stages = tuple(stages)
+        self.graphs = tuple(graphs)
         self.out = out
         self.bumps = tuple(bumps)
         self.collectives = collectives
 
     def replay(self, i: int) -> Optional[torch.Tensor]:
-        """Launches stage ``i`` on the current stream.  The last stage also
-        copies the output out of the pool, on the same stream, adds the
-        body's counts and returns the copy."""
-        self.stages[i].replay()
-        if i < len(self.stages) - 1:
+        """Launches stage ``i``'s graph on the current stream.  The last
+        stage also copies the output out of the pool, on the same stream,
+        adds the stages' counts and returns the copy."""
+        self.graphs[i].replay()
+        if i < len(self.graphs) - 1:
             return None
         _build.add_bumps(self.bumps)
         add_to_census(self.collectives)
@@ -149,7 +152,7 @@ class _Entry:
 
 
 class GraphCache:
-    """An engine's store-path groups by input identity, and their graphs.
+    """An engine's groups by input identity, and their graphs.
 
     ``capture(fn, device) -> (graph, outputs)`` captures one stage (default
     :class:`CudaCapture`); ``graph.replay()`` runs it again on the current
@@ -183,21 +186,18 @@ class GraphCache:
             self._entries[ident] = _Entry(inputs, self._entries, ident)
         return EAGER, None
 
-    def capture_group(self, entry: _Entry, stages: Sequence[Callable],
-                      fact, dims, device: torch.device) -> GroupGraphs:
-        """Captures a group's ``(route, mr1, mr2)`` stages into ``entry``
-        (once; call under :attr:`lock`): ``route(fact, dims)`` -> routed,
-        ``mr1(routed)`` -> volumes, ``mr2(routed, volumes)`` -> the group's
-        output.  What the body counts is held back for the replays."""
+    def capture_group(self, entry: _Entry, steps: Iterator,
+                      device: torch.device) -> GroupGraphs:
+        """Captures a group's stages into ``entry`` (once; call under
+        :attr:`lock`): ``steps`` runs one stage a ``next()``, the last
+        returning the group's output, and each ``next()`` is captured as
+        one graph.  What the stages count is held back for the replays."""
         if entry.graphs is None:
-            route, mr1, mr2 = stages
             with _build.held_bumps() as bumps, \
                     collective_census() as collectives:
-                g_route, routed = self.capture(lambda: route(fact, dims),
-                                               device)
-                g_mr1, vols = self.capture(lambda: mr1(routed), device)
-                g_mr2, out = self.capture(lambda: mr2(routed, vols), device)
+                captured = [self.capture(lambda: next(steps), device)
+                            for _ in range(N_STAGES)]
             entry.graphs = GroupGraphs(
-                (g_route, g_mr1, g_mr2), out, bumps,
+                [g for g, _ in captured], captured[-1][1], bumps,
                 {k: n for k, n in collectives.items() if n})
         return entry.graphs

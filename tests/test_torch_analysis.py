@@ -401,20 +401,23 @@ def _one_sig():
 def test_contracts_clean_on_real_engine(P):
     from repro_torch.analysis.contracts import check_all_contracts
     failures, checked = check_all_contracts(mesh=_mesh(P))
-    # 4 families x 2 signature buckets + 2 top-k buckets, per policy
-    assert checked == 20
+    # 2 families x 2 signature buckets + 2 top-k buckets, per policy
+    assert checked == 12
     assert failures == []
 
 
-def test_contract_counts_match_the_reference_checker():
+def test_contract_counts_match_the_reference_checker(monkeypatch):
     """The same signatures yield the same number of checked programs in the
-    JAX package's checker and in the port's."""
+    JAX package's checker, restricted to the families the port has
+    (``fct_store``, ``fct_store_percn``, ``fct_topk``), and in the
+    port's."""
+    from repro.analysis import contracts as jax_contracts
     from repro.analysis.contracts import check_all_contracts as jax_check
     from repro.analysis.contracts import \
         representative_signatures as jax_sigs
     from repro.core.accum import INT32_CHECKED as JAX_INT32
     from repro.launch.mesh import make_worker_mesh as jax_mesh
-    from repro_torch.analysis.contracts import (check_all_contracts,
+    from repro_torch.analysis.contracts import (KINDS, check_all_contracts,
                                                 representative_signatures)
     from repro_torch.core.accum import INT32_CHECKED
     def shapes(sigs):
@@ -423,10 +426,12 @@ def test_contract_counts_match_the_reference_checker():
 
     assert shapes(representative_signatures(8, [INT32_CHECKED])) == shapes(
         jax_sigs(8, [JAX_INT32]))
+    assert set(KINDS) < set(jax_contracts.KINDS)
+    monkeypatch.setattr(jax_contracts, "KINDS", KINDS)
     jf, jchecked = jax_check(mesh=jax_mesh(1), policies=[JAX_INT32])
     pf, pchecked = check_all_contracts(mesh=_mesh(1), policies=[INT32_CHECKED])
     assert jf == [] and pf == []
-    assert pchecked == jchecked == 10
+    assert pchecked == jchecked == 6
 
 
 def test_contract_c4_rejects_unbucketed_signature():
@@ -434,17 +439,17 @@ def test_contract_c4_rejects_unbucketed_signature():
     sig = _one_sig()
     bad = dataclasses.replace(
         sig, fact=dataclasses.replace(sig.fact, rows=12))
-    failures = check_contract("fct_batched", bad, 2, _mesh())
+    failures = check_contract("fct_store", bad, 2, _mesh())
     assert failures and "C4" in failures[0] and "rows=12" in failures[0]
 
 
 def test_contract_c4_rejects_unbucketed_cn_stack():
     from repro_torch.analysis.contracts import check_contract
-    failures = check_contract("fct_batched_percn", _one_sig(), 3, _mesh())
+    failures = check_contract("fct_store_percn", _one_sig(), 3, _mesh())
     assert failures and "C4" in failures[0] and "n_stack=3" in failures[0]
 
 
-@pytest.mark.parametrize("kind", ["fct_batched", "fct_store_percn"])
+@pytest.mark.parametrize("kind", ["fct_store", "fct_store_percn"])
 def test_contract_c2_catches_float_accumulator(monkeypatch, kind):
     from repro_torch.analysis.contracts import check_contract
     from repro_torch.core import accum
@@ -460,14 +465,14 @@ def test_contract_c1_catches_double_reduction(monkeypatch, P):
     import repro_torch.runtime.engine as engine_mod
     from repro_torch.analysis.contracts import check_contract
     from repro_torch.launch import mesh as mesh_mod
-    orig = engine_mod._vmapped_cns
+    orig = engine_mod._aggregate
 
     def doubled(*args, **kwargs):
         return mesh_mod.psum(orig(*args, **kwargs))
 
-    monkeypatch.setattr(engine_mod, "_vmapped_cns", doubled)
+    monkeypatch.setattr(engine_mod, "_aggregate", doubled)
     sig = dataclasses.replace(_one_sig(), n_devices=P)
-    failures = check_contract("fct_batched", sig, 2, _mesh(P))
+    failures = check_contract("fct_store", sig, 2, _mesh(P))
     assert failures and any("C1" in f and "2 reductions" in f
                             for f in failures)
 
@@ -509,7 +514,7 @@ def test_cli_exits_zero_and_emits_json():
     payload = json.loads(proc.stdout)
     assert payload["ok"] and payload["lint"]["violations"] == []
     assert payload["lint"]["files_checked"] > 40
-    assert payload["contracts"] == {"checked": 40, "failures": []}
+    assert payload["contracts"] == {"checked": 24, "failures": []}
 
 
 def test_cli_exits_nonzero_on_violation(tmp_path):

@@ -2,7 +2,8 @@
 ``all_to_all``, ``psum``, ``psum_scatter``, ``all_gather``): each is bit for
 bit the inline tensor operation it replaced, counts itself only inside a
 ``collective_census``, and every path that runs them — ``run_cn_plan``,
-``dispatch_plans`` (summed and per-CN, store and host-stacked) and
+``dispatch_plans`` (summed and per-CN, with a caller's store and with a
+store made for the call) and
 ``dispatch_topk`` — stays bit-equal to the JAX package at P = 1 and P = 8
 under both accumulation policies, with the census the contracts expect."""
 import jax

@@ -25,7 +25,7 @@ a direct upload, ``submit`` from three threads with the launch and path
 counts exact, and a gateway burst that coalesces and then hits its cache,
 every answer equal to ``fct_star``.  A warm store-path query, under the
 profiler, copies nothing above 4 KB to the card (its plans' send tables are
-resident) and answers as the host-stacked family does.  The runtime
+resident) and answers as a storeless call does.  The runtime
 contract checker
 (``repro_torch.analysis.contracts``) over every FCT program family at P = 1
 and 8 under both policies, through the kernel.
@@ -626,10 +626,11 @@ def _joined_plans(schema, kws, P, r_max=4):
 
 @pytest.mark.parametrize("rs", [True, False])
 @pytest.mark.parametrize("P", [1, 8])
-def test_host_stacked_families_on_card(cuda_device, P, rs):
-    """Without a store the engine stacks the columns on the host and
-    uploads them: both families launch the kernel, never the plain
-    version, and equal the per-CN path on the CPU, under both policies."""
+def test_storeless_calls_on_card(cuda_device, P, rs):
+    """Without a store the engine uploads the columns to a store of the
+    call's own: both families launch the kernel, never the plain version,
+    and equal the per-CN path on the CPU, under both policies."""
+    from repro_torch.obs import MetricsRegistry
     from repro_torch.core.accum import INT64_EXACT
     from repro_torch.core.fct import run_cn_plan
     schema, kws = _serving_schema()
@@ -639,7 +640,8 @@ def test_host_stacked_families_on_card(cuda_device, P, rs):
     for accum, name in ((INT32_CHECKED, "fct_count_exact_int32"),
                         (INT64_EXACT, "fct_count_exact_int64")):
         want = sum(run_cn_plan(p, cpu, accum=accum) for p in plans)
-        eng = fct_engine.FCTEngine(reduce_scatter=rs)
+        eng = fct_engine.FCTEngine(reduce_scatter=rs,
+                                   metrics=MetricsRegistry())
         kernel.LIB.reset_launches()
         ops.reset_path_counts()
         total = eng.run_plans(plans, mesh, accum=accum)
@@ -647,7 +649,9 @@ def test_host_stacked_families_on_card(cuda_device, P, rs):
         assert kernel.LAUNCHES[name] > 0 and ops.PATH_COUNTS["ref"] == 0
         np.testing.assert_array_equal(total, want)
         np.testing.assert_array_equal(indiv.sum(axis=0), want)
-        assert eng.column_bytes_shipped > 0
+        snap = eng.metrics.snapshot()
+        assert snap["counters"]["store.upload_bytes"] > 0
+        assert snap["gauges"]["store.resident_bytes"] == 0
 
 
 def test_two_jobs_on_card(cuda_device, tmp_path):
@@ -927,7 +931,7 @@ def test_contracts_on_card(cuda_device):
     kernel.LIB.reset_launches()
     ops.reset_path_counts()
     failures, checked = check_all_contracts(device=cuda_device)
-    assert failures == [] and checked == 40
+    assert failures == [] and checked == 24
     assert kernel.LAUNCHES["fct_count_exact_int32"] > 0
     assert kernel.LAUNCHES["fct_count_exact_int64"] > 0
     assert ops.PATH_COUNTS["ref"] == 0
@@ -1045,7 +1049,7 @@ def test_warm_store_query_copies_nothing_from_the_host(cuda_device, tmp_path,
     """A memoized plan's send tables stay on the card: under the profiler
     the cold query copies its columns and tables to the card, the warm
     query no host-to-device copy above 4 KB, and the warm answer equals the
-    host-stacked family's (plus the map-only CNs) and ``fct_star``."""
+    storeless call's (plus the map-only CNs) and ``fct_star``."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.schema import PAD_ID
     schema, kws = _serving_schema()

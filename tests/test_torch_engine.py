@@ -1,13 +1,14 @@
-"""The port's FCTEngine beyond the store families, against the JAX package's
-on the CPU: the host-stacked families (``fct_batched``,
-``fct_batched_percn``, taken when no store is given) bit for bit the
+"""The port's FCTEngine beyond a session's store, against the JAX package's
+on the CPU: a storeless call (a store made for the call) bit for bit the
 reference's storeless engine and the port's per-CN ``run_cn_plan`` (held to
-the reference's in ``test_torch_fct.py``), with the same
-``bytes_shipped`` and ``column_bytes_shipped``, under both accumulation
-policies; the store path shipping 0 column bytes; the engine options
-``batch=``, ``bucket=`` and ``reduce_scatter=`` with the reference's group
-counts; and program-cache keys that never alias across families, shapes,
-aggregation layouts and the two-job programs."""
+the reference's in ``test_torch_fct.py``), with the reference's group and
+CN counts, under both accumulation policies; its column bytes counted as
+store uploads (``store.upload_bytes``) and its send tables as
+``bytes_shipped`` at the plans' first dispatch only; a caller's store
+uploading the same columns once; the engine options ``batch=``,
+``bucket=`` and ``reduce_scatter=`` with the reference's group counts; and
+program-cache keys that never alias across families, shapes, aggregation
+layouts and the two-job programs."""
 import jax
 import numpy as np
 import pytest
@@ -24,6 +25,7 @@ from repro_torch.core.fct import run_cn_plan, run_cn_plan_two_jobs
 from repro_torch.core.plan import build_cn_plan
 from repro_torch.data.schema import schema_from_reference
 from repro_torch.launch.mesh import make_worker_mesh
+from repro_torch.obs import MetricsRegistry
 from repro_torch.runtime import batch
 from repro_torch.runtime.batch import group_plan_indices
 from repro_torch.runtime.cache import ExecutableCache
@@ -69,11 +71,31 @@ DATASETS = {"star_crafted": lambda: _crafted_schema(seed=0),
             "tpch_star": lambda: _dataset("star")}
 
 
+def _engine(**options):
+    """An engine on metrics of its own, so its stores' counters are its
+    calls' alone."""
+    return FCTEngine(cache=ExecutableCache(), metrics=MetricsRegistry(),
+                     **options)
+
+
+def column_bytes(eng):
+    """Column bytes uploaded by the stores on ``eng``'s metrics: those its
+    storeless calls made for themselves."""
+    return eng.metrics.snapshot()["counters"].get("store.upload_bytes", 0)
+
+
+def resident_bytes(eng):
+    """Bytes still resident in those stores: 0 once their calls ended."""
+    return eng.metrics.snapshot()["gauges"].get("store.resident_bytes", 0)
+
+
 @pytest.mark.parametrize("bucket", [True, False])
 def test_signatures_groups_and_stacks_equal_the_reference(bucket):
     """``runtime/batch.py`` on one plan list: the reference's signatures
-    (exact dims with ``bucket=False``), groups, and padded, stacked and
-    null-CN-padded host arrays, value for value and dtype for dtype."""
+    (exact dims with ``bucket=False``), groups, and each grouped plan's host
+    arrays padded to its group's signature (what the two-job path uploads,
+    and the shapes a group's resident columns are stored at), value for
+    value and dtype for dtype."""
     sj, kws = _dataset("mix")
     jplans, pplans, _ = plan_pairs(sj, kws, 3)
     jgroups = jax_batch.group_plans(jplans, bucket)
@@ -85,14 +107,13 @@ def test_signatures_groups_and_stacks_equal_the_reference(bucket):
         for a, b in zip((sig.fact, *sig.dims), (jsig.fact, *jsig.dims)):
             assert (a.rows, a.cap, a.text_len, a.domain, a.key_width) == \
                 (b.rows, b.cap, b.text_len, b.domain, b.key_width)
-        n = len(group) + 3                  # three null CNs on the CN axis
-        fact, dims = batch.pad_cn_axis(*batch.stack_group(group, sig), n)
-        jfact, jdims = jax_batch.pad_cn_axis(
-            *jax_batch.stack_group(jgroup, jsig), n)
-        for rel, jrel in zip((fact, *dims), (jfact, *jdims)):
-            for k in ("text", "keys", "send"):
-                assert rel[k].dtype == jrel[k].dtype
-                np.testing.assert_array_equal(rel[k], jrel[k])
+        for plan, jplan in zip(group, jgroup):
+            fact, dims = batch.pad_plan_arrays(plan, sig)
+            jfact, jdims = jax_batch.pad_plan_arrays(jplan, jsig)
+            for rel, jrel in zip((fact, *dims), (jfact, *jdims)):
+                for k in ("text", "keys", "send"):
+                    assert rel[k].dtype == jrel[k].dtype
+                    np.testing.assert_array_equal(rel[k], jrel[k])
     if bucket:
         assert all(batch.bucket_pow2(sig.fact.rows) == sig.fact.rows
                    for sig, _ in groups)
@@ -100,29 +121,35 @@ def test_signatures_groups_and_stacks_equal_the_reference(bucket):
 
 @pytest.mark.parametrize("policy", list(POLICIES), indirect=True)
 @pytest.mark.parametrize("dataset", list(DATASETS))
-def test_host_stacked_bit_identical_to_reference(dataset, policy):
+def test_storeless_bit_identical_to_reference(dataset, policy):
     sj, kws = DATASETS[dataset]()
     jplans, pplans, _ = plan_pairs(sj, kws, 3)
     jmesh, mesh = jax_mesh(1), make_worker_mesh(1, "cpu")
     jeng = JaxEngine(cache=JAX_CACHE)
-    peng = FCTEngine(cache=ExecutableCache())
+    peng = _engine()
     total = peng.run_plans(pplans, mesh, accum=policy)
     np.testing.assert_array_equal(total, jeng.run_plans(jplans, jmesh))
     np.testing.assert_array_equal(
         total, sum(run_cn_plan(p, mesh, accum=policy) for p in pplans))
+    first = peng.stats()
+    columns = column_bytes(peng)
     indiv = peng.run_plans_individual(pplans, mesh, accum=policy)
     np.testing.assert_array_equal(indiv,
                                   jeng.run_plans_individual(jplans, jmesh))
     st = peng.stats()
-    # the same arrays in the same dtypes: the reference's byte counts
-    assert st["bytes_shipped"] == jeng.bytes_shipped > 0
-    assert st["column_bytes_shipped"] == peng.column_bytes_shipped == \
-        jeng.column_bytes_shipped > 0
     assert (st["batches_run"], st["cns_run"]) == (jeng.batches_run,
                                                   jeng.cns_run)
-    # the store path: bit-equal, 0 column bytes, and its per-CN family
-    # re-uploads nothing
-    seng = FCTEngine(cache=ExecutableCache())
+    # each call uploads the columns to a store of its own, dropped when the
+    # call ends; the send tables go up with the plans' first dispatch only
+    assert columns > 0 and column_bytes(peng) == 2 * columns
+    assert resident_bytes(peng) == 0
+    n_routes = sum(1 + len(p.included) for p in pplans)
+    assert first["send_uploads"] == n_routes and first["bytes_shipped"] > 0
+    assert st["send_uploads"] == n_routes and st["send_hits"] == n_routes
+    assert st["bytes_shipped"] == first["bytes_shipped"]
+    # a caller's store: bit-equal, the same columns uploaded once, and its
+    # per-CN family re-uploads nothing
+    seng = _engine()
     store = RelationStore(mesh)
     np.testing.assert_array_equal(
         seng.run_plans(pplans, mesh, store=store, accum=policy), total)
@@ -131,7 +158,8 @@ def test_host_stacked_bit_identical_to_reference(dataset, policy):
         seng.run_plans_individual(pplans, mesh, store=store, accum=policy),
         indiv)
     assert uploads > 0 and store.stats()["store_uploads"] == uploads
-    assert seng.column_bytes_shipped == 0
+    assert store.stats()["store_upload_bytes"] == columns
+    assert column_bytes(seng) == 0
 
 
 @pytest.mark.parametrize("batch,bucket", [(False, False), (True, False),
@@ -146,16 +174,24 @@ def test_engine_options_match_reference(batch, bucket):
     want = FCTEngine(cache=ExecutableCache()).run_plans_individual(pplans,
                                                                    mesh)
     jeng = JaxEngine(cache=JAX_CACHE, batch=batch, bucket=bucket)
-    peng = FCTEngine(cache=ExecutableCache(), batch=batch, bucket=bucket)
+    peng = _engine(batch=batch, bucket=bucket)
+    columns, sends = [], []
     for run in ("run_plans", "run_plans_individual"):
         got = getattr(peng, run)(pplans, mesh)
         np.testing.assert_array_equal(got, getattr(jeng, run)(jplans, jmesh))
         np.testing.assert_array_equal(
             got, want.sum(axis=0) if run == "run_plans" else want)
-    st = peng.stats()
+        columns.append(column_bytes(peng))
+        st = peng.stats()
+        sends.append((st["send_uploads"], st["send_hits"]))
     assert st["batches_run"] == jeng.batches_run
-    assert (st["bytes_shipped"], st["column_bytes_shipped"]) == \
-        (jeng.bytes_shipped, jeng.column_bytes_shipped)
+    # both calls upload the same columns to stores of their own; a send
+    # table goes up at its route's first dispatch at its cap (``want``'s
+    # run uploaded the bucketed caps), so the second call finds them all
+    assert columns[0] > 0 and columns[1] == 2 * columns[0]
+    n_routes = sum(1 + len(p.included) for p in pplans)
+    assert sum(sends[0]) == n_routes
+    assert sends[1] == (sends[0][0], sends[0][1] + n_routes)
     n_groups = len(group_plan_indices(pplans, bucket))
     assert jeng.batches_run == 2 * (len(pplans) if not batch else n_groups)
     assert n_groups >= len(group_plan_indices(pplans, True))
@@ -176,9 +212,10 @@ def test_cache_keys_never_alias():
     exact = FCTEngine(cache=cache, bucket=False)
     store = RelationStore(mesh)
     want = rs.run_plans(plans, mesh)
+    # a storeless call and a caller's store run the same programs
     steps = [(lambda: psum.run_plans(plans, mesh), n_groups),
-             (lambda: rs.run_plans(plans, mesh, store=store), n_groups),
-             (lambda: psum.run_plans(plans, mesh, store=store), n_groups),
+             (lambda: rs.run_plans(plans, mesh, store=store), 0),
+             (lambda: psum.run_plans(plans, mesh, store=store), 0),
              (lambda: exact.run_plans(plans, mesh), n_exact)]
     assert len(cache) == n_groups
     for run, added in steps:
@@ -195,20 +232,21 @@ def test_cache_keys_never_alias():
 
 
 @pytest.mark.parametrize("P", [1, 8])
-def test_host_stacked_device_topk_matches_store_path(P):
-    """``dispatch_topk`` without a store takes the host-stacked family and
-    finalizes the same candidates, in both aggregation layouts."""
+def test_storeless_device_topk_matches_store_path(P):
+    """``dispatch_topk`` without a store uploads the columns to a store of
+    the call's own and finalizes the same candidates as with a caller's
+    store, in both aggregation layouts."""
     sj, kws = _dataset("star")
     _, plans, _ = plan_pairs(sj, kws, 3, P=P)
     mesh = make_worker_mesh(P, "cpu")
     out = []
     for rs in (True, False):
-        eng = FCTEngine(cache=ExecutableCache(), reduce_scatter=rs)
+        eng = _engine(reduce_scatter=rs)
         for store in (None, RelationStore(mesh)):
             tp = eng.dispatch_topk(plans, mesh, 10, keywords=kws,
                                    store=store, prune="off")
             out.append(eng.collect_topk(tp))
-        assert eng.column_bytes_shipped > 0
+        assert column_bytes(eng) > 0 and resident_bytes(eng) == 0
     for ids, counts in out[1:]:
         np.testing.assert_array_equal(ids, out[0][0])
         np.testing.assert_array_equal(counts, out[0][1])

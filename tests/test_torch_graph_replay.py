@@ -12,7 +12,8 @@ engine's decisions and bookkeeping:
 * inputs that changed (a store eviction, a plan dropped and planned anew,
   an append's re-assembled chunk) run eagerly, and the stale graphs are
   dropped once their inputs die;
-* the host-stacked path and CPU meshes never capture;
+* storeless calls (a store made for the call, whose columns die with it)
+  and CPU meshes never capture;
 * the ``graph`` arg of ``engine.dispatch_group`` and the counters
   ``graph_eager`` / ``graph_captures`` / ``graph_replays`` read as stated,
   and ``engine.graph_replay_share.warm`` reads them;
@@ -46,7 +47,7 @@ from repro_torch.kernels.fct_count import kernel, ops, ref
 from repro_torch.launch.mesh import collective_census, make_worker_mesh
 from repro_torch.obs import MetricsRegistry, Trace
 from repro_torch.runtime.cache import ExecutableCache
-from repro_torch.runtime.engine import FCTEngine, HostCopy
+from repro_torch.runtime.engine import FCTEngine, HostCopy, _stage_steps
 from repro_torch.runtime.graphs import CAPTURE, EAGER, REPLAY, GraphCache
 from repro_torch.runtime.store import RelationStore
 
@@ -201,6 +202,9 @@ def test_changed_inputs_run_eager_and_drop_stale_graphs(mutation, P):
 
 @pytest.mark.parametrize("P", [1, 8])
 def test_host_path_never_captures(P):
+    """Storeless ``run_plans``: each call uploads the columns to a store of
+    its own, so no two calls share inputs, and each call's entries go with
+    its columns."""
     schema = _schema()
     calls = []
     eng = _engine(_stub_cache(calls))
@@ -219,7 +223,10 @@ def test_host_path_never_captures(P):
         assert modes and set(modes) == {EAGER}
     st = eng.stats()
     assert not calls and len(eng.graphs) == 0
-    assert {k: st[k] for k in GRAPH_KEYS} == dict.fromkeys(GRAPH_KEYS, 0)
+    # every group ran through the engine's one loop, eagerly
+    assert {k: st[k] for k in GRAPH_KEYS} == {
+        "graph_eager": st["batches_run"], "graph_captures": 0,
+        "graph_replays": 0}
     session.close()
 
 
@@ -295,8 +302,8 @@ def test_graph_cache_matches_live_objects_only():
     assert cache.decide(key, dev, (a, b))[0] == EAGER
     mode, entry = cache.decide(key, dev, (a, b))
     assert mode == CAPTURE
-    cache.capture_group(entry, (lambda f, d: f, lambda r: r,
-                                lambda r, v: r + v), a, [], dev)
+    cache.capture_group(entry, _stage_steps(
+        (lambda f, d: f, lambda r: r, lambda r, v: r + v), a, []), dev)
     assert cache.decide(key, dev, (a, b))[0] == REPLAY
     # another object in a slot, or another key: eager
     c = b.clone()

@@ -6,12 +6,12 @@ on the CPU:
   indices (``send_uploads`` > 0, the bytes in ``bytes_shipped``); a second
   dispatch of the same plans ships 0 bytes, counts only ``send_hits`` and
   answers bit for bit the same;
-* those answers equal the host-stacked family's, the JAX engine's and the
-  per-CN ``run_cn_plan``'s, for ``run_plans`` and for
+* those answers equal a storeless call's (a store made for the call), the
+  JAX engine's and the per-CN ``run_cn_plan``'s, for ``run_plans`` and for
   ``run_plans_individual`` over two compositions whose groups take
   different numbers of null CN slots, at P = 1 and 8 under both
-  accumulation policies; ``dispatch_topk`` gives the host-stacked family's
-  top-k;
+  accumulation policies, and the caller's store uploads each column once;
+  ``dispatch_topk`` gives a storeless call's top-k;
 * after ``FCTSession.append`` and after ``invalidate()`` the re-planned
   routes upload their tables anew, no table of the dropped plans is reused,
   and the answers equal the reference's ``fct_star``.
@@ -72,9 +72,6 @@ def test_second_dispatch_ships_nothing_and_equals_every_family(dataset,
     # totals and per-CN histograms do not depend on P: the reference at 1
     want = jeng.run_plans(jplans, jax_mesh(1))
     want_indiv = jeng.run_plans_individual(jplans, jax_mesh(1))
-    host = _engine()
-    np.testing.assert_array_equal(host.run_plans(pplans, mesh, accum=policy),
-                                  want)
     np.testing.assert_array_equal(
         sum(run_cn_plan(p, mesh, accum=policy) for p in pplans), want)
     eng, store = _engine(), RelationStore(mesh)
@@ -86,6 +83,8 @@ def test_second_dispatch_ships_nothing_and_equals_every_family(dataset,
     assert up["send_uploads"] == n_tables and up["send_hits"] == 0
     assert up["bytes_shipped"] > 0
     np.testing.assert_array_equal(first, want)
+    column_bytes = store.stats()["store_upload_bytes"]
+    assert column_bytes > 0
 
     # second dispatch of the same plans: nothing shipped, all hits
     before = _sends(eng)
@@ -93,6 +92,11 @@ def test_second_dispatch_ships_nothing_and_equals_every_family(dataset,
     assert _sends(eng, before) == {"bytes_shipped": 0, "send_uploads": 0,
                                    "send_hits": n_tables}
     np.testing.assert_array_equal(again, first)
+    # a storeless call: the same answer (after the store path's first
+    # dispatch, which the tables' uploads above count)
+    storeless = _engine()
+    np.testing.assert_array_equal(
+        storeless.run_plans(pplans, mesh, accum=policy), want)
 
     # per-CN family over two compositions, null CN slots included
     padded = False
@@ -108,9 +112,10 @@ def test_second_dispatch_ships_nothing_and_equals_every_family(dataset,
                                        "send_hits": len(_routes(plans))}
         np.testing.assert_array_equal(got, want_indiv[idxs])
         np.testing.assert_array_equal(
-            got, host.run_plans_individual(plans, mesh, accum=policy))
+            got, storeless.run_plans_individual(plans, mesh, accum=policy))
     assert padded
-    assert eng.column_bytes_shipped == 0
+    # the columns went up once, at the first dispatch
+    assert store.stats()["store_upload_bytes"] == column_bytes
 
 
 @pytest.mark.parametrize("P", [1, 8])
@@ -119,19 +124,15 @@ def test_dispatch_topk_from_resident_tables(policy, P):
     sj, kws = DATASETS["tpch_star"]()
     _, pplans, _ = plan_pairs(sj, kws, 3, P)
     mesh = make_worker_mesh(P, "cpu")
-    host = _engine()
-    want = host.collect_topk(host.dispatch_topk(
-        pplans, mesh, 10, keywords=kws, accum=policy, prune="off"))
     eng, store = _engine(), RelationStore(mesh)
     excl = eng.vocab_device_vector(np.zeros(pplans[0].vocab_size, np.int8),
                                    mesh, np.int8)
+    answers = []
     for run in range(2):
         before = _sends(eng)
-        got = eng.collect_topk(eng.dispatch_topk(
+        answers.append(eng.collect_topk(eng.dispatch_topk(
             pplans, mesh, 10, keywords=kws, excl=excl, store=store,
-            accum=policy, prune="off"))
-        for a, b in zip(got, want):
-            np.testing.assert_array_equal(a, b)
+            accum=policy, prune="off")))
         moved = _sends(eng, before)
         if run == 0:
             assert moved["send_uploads"] == len(_routes(pplans))
@@ -139,6 +140,12 @@ def test_dispatch_topk_from_resident_tables(policy, P):
             assert moved["send_uploads"] == 0 and moved["send_hits"] > 0
             # the keyword-id vector is the one argument shipped per call
             assert moved["bytes_shipped"] == keyword_ids_array(kws).nbytes
+    storeless = _engine()
+    want = storeless.collect_topk(storeless.dispatch_topk(
+        pplans, mesh, 10, keywords=kws, accum=policy, prune="off"))
+    for got in answers:
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
 
 
 def _tables(plans):

@@ -2,11 +2,11 @@
 and append paths (``repro_torch.obs`` fed by ``runtime/engine.py``,
 ``core/fct.py``, ``api/session.py`` and ``serve/gateway.py``), on the CPU:
 
-* each ``engine.dispatch_group`` of a warm query holds ``store.group_args``
-  (or ``engine.host_stack``), ``engine.upload`` and ``fct.route`` /
+* each ``engine.dispatch_group`` of a warm query, or of a storeless call,
+  holds ``store.group_args``, ``engine.upload`` and ``fct.route`` /
   ``fct.mr1`` / ``fct.mr2``, each inside its parent's interval, and says
-  whether it built its program; on the store path the cold query's
-  ``store.group_args`` ship send tables and the warm query's ship none;
+  whether it built its program; the cold query's ``store.group_args`` ship
+  send tables and the warm query's ship none;
 * a cold ``plan`` holds ``plan.tuple_sets``, ``plan.cns``, ``plan.cn_plan``
   and ``plan.map_only``; a plan-cache hit holds none;
 * an append's trace (``AppendResult.trace``) holds ``session.append``,
@@ -115,10 +115,11 @@ def test_warm_query_splits_each_dispatch_group():
 
 
 @pytest.mark.parametrize("individual", [False, True])
-def test_host_stacked_groups_split_the_same_way(individual):
-    """Storeless ``dispatch_plans`` on an active trace: ``engine.host_stack``
-    then the same children, and the upload span counts the stacked
-    columns."""
+def test_storeless_groups_split_the_same_way(individual):
+    """Storeless ``dispatch_plans`` on an active trace: the same children,
+    the ``store.upload`` spans beneath ``store.group_args`` count the
+    columns the call's own store uploads, and ``send_bytes`` the send
+    tables it ships."""
     session = _session()
     plans = session._plan(_req()).plans
     eng = engine_mod.FCTEngine(cache=ExecutableCache(),
@@ -129,10 +130,13 @@ def test_host_stacked_groups_split_the_same_way(individual):
                                      individual=individual)
     assert len(pending) >= 1
     spans = tr.spans()
-    _check_groups(spans, "engine.host_stack")
-    shipped = sum(s.args["bytes"] for s in spans
-                  if s.name == "engine.upload")
-    assert shipped == eng.stats()["bytes_shipped"]
+    _check_groups(spans, "store.group_args")
+    columns = sum(s.args["bytes"] for s in spans if s.name == "store.upload")
+    assert columns == eng.metrics.snapshot()["counters"][
+        "store.upload_bytes"] > 0
+    shipped = sum(s.args["send_bytes"] for s in spans
+                  if s.name == "store.group_args")
+    assert shipped == eng.stats()["bytes_shipped"] > 0
     session.close()
 
 
@@ -237,14 +241,15 @@ def counted_histograms(monkeypatch):
     return seen
 
 
-@pytest.mark.parametrize("path", ["query", "batch", "device_topk", "host"])
+@pytest.mark.parametrize("path", ["query", "batch", "device_topk",
+                                  "storeless"])
 def test_fct_count_tokens_equal_the_launched_shapes(counted_histograms, path):
     session = _session(device_topk=path == "device_topk")
     before = session.stats()["fct_count_tokens"]
     if path == "batch":
         resps = session.query_batch([_req(), _req(mode="skew", rho=2)])
         stats = resps[0].engine_stats
-    elif path == "host":
+    elif path == "storeless":
         plans = session._plan(_req()).plans
         session.engine.run_plans(plans, session.mesh)
         stats = {"fct_count_tokens": session.stats()["fct_count_tokens"]
