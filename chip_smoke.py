@@ -50,13 +50,20 @@ Phases, one line each, then a kernels line and a last line with the device:
                 kernel, fct_count's share, the device's idle share (the
                 prefill of phase 10 is profiled the same way).
   6. fct_timing each fct_count instantiation at the main path's largest call
-                (its actual inputs): held against the plain version on those
+                (its actual inputs; the routed call's text gathered into
+                the plain layout): held against the plain version on those
                 inputs (bit-equal), then timed: kernel, plain version, one
                 ``index_add_`` on prepared inputs, the kernel on controls of
                 the same shape (uniform tokens: no hot bins; every weight 1:
                 every token read; both), and the byte bound of what the inputs need (weights, the tokens
                 of rows whose weight is not 0, the output) beside the padded
                 bound that reads every token; the share of zero-weight rows.
+                Each routed instantiation (MR² by reference, the main
+                path's) at that call as it was made: bit-equal to
+                ``index_select`` of the routed text + the plain-layout
+                kernel, both timed (``ms``, ``plain_ms``), and its byte
+                bound (weights, the send entry and tokens of each non-zero
+                row, the output).
   7. serve      the serving path on phase 4's deployment: a ``Gateway`` over a
                 ``SchemaRegistry`` of two tenants (``tpch``: phase 4's schema
                 as is, int32 policy; ``demo``: ``repro_torch.data.demo``),
@@ -82,8 +89,8 @@ Phases, one line each, then a kernels line and a last line with the device:
                 the uncached query, append + ``delta_freq``, the first
                 post-append query, the re-query, the device top-k queries,
                 the launcher smoke) runs with every count set to 0 just
-                before it and read just after: fct_count int32 launched in
-                each but burst 2, which launched nothing, and no
+                before it and read just after: the routed fct_count int32
+                launched in each but burst 2, which launched nothing, and no
                 plain-version call; each path's count goes into the kernels
                 line as ``<path>_launches``.
  7b. analysis   the port's invariant checks (``repro_torch.analysis``):
@@ -91,7 +98,7 @@ Phases, one line each, then a kernels line and a last line with the device:
                 its waivers listed; the runtime contracts (C1-C4) over the
                 three FCT program families at P 1 and 8 under both policies
                 on the card, 0 failures, inside ``counted`` (both integer
-                fct_count instantiations launched, no plain-version call;
+                routed fct_count instantiations launched, no plain-version call;
                 ``analysis_launches`` in the kernels line); then
                 ``examples/quickstart_torch.py`` and
                 ``examples/fct_query_expansion_torch.py`` as subprocesses
@@ -131,8 +138,10 @@ Phases, one line each, then a kernels line and a last line with the device:
                 answer bit-equal to ``fct_star``.  Each path (``batched``,
                 ``batched_percn``, ``two_jobs``, ``two_jobs_ckpt``,
                 ``batched_int64``, ``p8_modes``) runs inside ``counted``:
-                its fct_count kernel launched, no plain-version call, and
-                its count goes into the kernels line as
+                its fct_count kernel launched (the two-job paths the
+                plain-layout one, the others the routed one), no
+                plain-version call, and its count goes into the kernels
+                line as
                 ``<path>_launches``.
  10. lm_prefill recurrentgemma-2b (arXiv:2402.19427) at full width and
                 depth in bf16, random weights from ``--seed``: one prefill
@@ -314,6 +323,11 @@ KERNELS = {  # name -> (weight dtype name, TPU kernel it replaces)
     "fct_count_exact_int32": ("int32", "src/repro/kernels/fct_count/kernel.py:170"),
     "fct_count_exact_int64": ("int64", "src/repro/kernels/fct_count/kernel.py:170"),
     "fct_count_float32": ("float32", "src/repro/kernels/fct_count/kernel.py:100"),
+}
+#: the routed instantiations (MR² by reference), as KERNELS
+ROUTED_KERNELS = {
+    "fct_count_routed_int32": ("int32", "src/repro/kernels/fct_count/kernel.py:170"),
+    "fct_count_routed_int64": ("int64", "src/repro/kernels/fct_count/kernel.py:170"),
 }
 SOURCE = "src/repro_torch/kernels/fct_count/csrc/fct_count.cu"
 
@@ -530,20 +544,32 @@ def run_kernel_cases(torch, np, dev, ops, kernel):
 # --- phase 4: the main path ----------------------------------------------------
 
 class Recorder:
-    """Wraps the kernel entry point during the main path to keep, per weight
-    dtype, the inputs of its largest call (for phase 5's timing).  Launch
-    counting stays in the wrapped function."""
+    """Wraps the routed kernel's entry point during the main path to keep,
+    per weight dtype, the inputs of its largest call (texts, send tables,
+    weights, vocab; for phase 6's timing).  Launch counting stays in the
+    wrapped function."""
 
     def __init__(self, fn):
         self.fn = fn
         self.largest = {}
 
-    def __call__(self, tokens, weights, vocab):
+    def __call__(self, texts, send, weights, vocab, pointers=None):
         key = weights.dtype
         best = self.largest.get(key)
-        if best is None or tokens.numel() > best[0].numel():
-            self.largest[key] = (tokens, weights, vocab)
-        return self.fn(tokens, weights, vocab)
+        if best is None or weights.numel() > best[2].numel():
+            self.largest[key] = (texts, send, weights, vocab)
+        return self.fn(texts, send, weights, vocab, pointers)
+
+
+def materialized(texts, send, weights, vocab):
+    """A routed call's inputs in the plain layout: the routed text gathered
+    (``index_select``, as the two-job path gathers it) as ``[N, R, L]`` and
+    the weights as ``[N, R]``."""
+    from repro_torch.core.fct import _routed_text
+    N, P, _, C = send.shape
+    L = texts[0].shape[-1]
+    return (_routed_text(texts, send).reshape(N, P * P * C, L),
+            weights.reshape(N, P * P * C), vocab)
 
 
 def build_schema(np, args):
@@ -588,8 +614,8 @@ def run_main_path(torch, np, args, dev):
     print(f"[main] fct_star oracles for {len(oracles)} keyword sets in "
           f"{time.perf_counter() - t1:.3f}s", flush=True)
 
-    recorder = Recorder(kernel.fct_count)
-    kernel.fct_count = recorder
+    recorder = Recorder(kernel.fct_count_routed)
+    kernel.fct_count_routed = recorder
     torch.cuda.reset_peak_memory_stats(dev)
     reset_all_counts()
     try:
@@ -602,7 +628,7 @@ def run_main_path(torch, np, args, dev):
         resp64 = session64.query(full)
         torch.cuda.synchronize(dev)
     finally:
-        kernel.fct_count = recorder.fn
+        kernel.fct_count_routed = recorder.fn
     launches = dict(kernel.LAUNCHES)
     paths = dict(ops.PATH_COUNTS)
 
@@ -633,8 +659,8 @@ def run_main_path(torch, np, args, dev):
     t = resp64.timings
     print(f"[main] query int64: plan_ms {t['plan_ms']} dispatch_ms "
           f"{t['dispatch_ms']} collect_ms {t['collect_ms']}", flush=True)
-    check(launches["fct_count_exact_int32"] > 0, "int32 kernel never ran")
-    check(launches["fct_count_exact_int64"] > 0, "int64 kernel never ran")
+    check(launches["fct_count_routed_int32"] > 0, "int32 kernel never ran")
+    check(launches["fct_count_routed_int64"] > 0, "int64 kernel never ran")
     check(paths["ref"] == 0, f"plain version ran on the main path: {paths}")
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"[main] launches {launches} paths {paths} device_peak_bytes "
@@ -778,6 +804,51 @@ def time_kernel(torch, ops, tokens, weights, vocab, seed):
             "bytes": nbytes, "padded_bound_ms": padded / PEAK_BYTES_PER_S * 1e3,
             "zero_weight_share": 1 - nonzero / (B * R), **controls,
             "shape": [B, R, L, vocab]}
+
+
+def time_routed(torch, ops, kernel, texts, send, weights, vocab):
+    """The routed kernel on one main-path call's inputs, held bit for bit
+    to ``index_select`` of the routed text followed by the plain-layout
+    kernel, then both timed (``ms`` and ``plain_ms``).  The bound counts
+    what the call needs: the weights, the send entry and the tokens of each
+    row whose weight is not 0, the output; ``materialized_bytes`` what the
+    gather moves besides (its index, the rows read and written)."""
+    from repro_torch.core.fct import _routed_text
+    N, P, _, C = send.shape
+    L = texts[0].shape[-1]
+    R = P * P * C
+    pointers = kernel.text_pointers(texts, send.device)
+
+    def routed():
+        return ops.routed_histogram(texts, send, weights, vocab, pointers)
+
+    def plain():
+        return kernel.fct_count(_routed_text(texts, send).reshape(N, R, L),
+                                weights.reshape(N, R), vocab)
+
+    got, want = routed(), plain()
+    torch.cuda.synchronize()
+    err = (got.double() - want.double()).abs().max().item()
+    check(torch.equal(got, want), f"routed at shape {[N, R, L, vocab]}: "
+          f"kernel != gather + fct_count (max abs diff {err})")
+    del got, want
+    ms = median_ms(torch, routed)
+    plain_ms = median_ms(torch, plain)
+    torch.cuda.empty_cache()
+    w_item = weights.element_size()
+    nonzero = int((weights != 0).sum())
+    nbytes = (N * R * w_item + nonzero * (4 + L * 4)
+              + N * vocab * w_item)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = nonzero * L / PEAK_SCALAR_OPS_PER_S * 1e3
+    return {"ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "plain": "index_select + fct_count", "library_ms": None,
+            "equal": err == 0.0, "max_abs_err": err,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "materialized_bytes": N * R * (8 + 2 * L * 4),
+            "zero_weight_share": 1 - nonzero / (N * R),
+            "shape": [N, R, L, vocab], "P": P, "cap": C}
 
 
 # --- phases 7-8: the serving path on phase 4's deployment ----------------------
@@ -934,7 +1005,7 @@ def run_serve(torch, np, args, dev, schema, oracles, full):
         miss_ms = (time.perf_counter() - t0) * 1e3
         check_answer(np, r, oracles[full.keywords], kws, 10, "uncached")
         prof = profile_device(torch, lambda: probe.query("tpch", full),
-                              {"fct_count": "fct_count_kernel"})
+                              {"fct_count": "fct_count"})
     print(f"[serve] uncached tpch query on the warm session (window 5 ms): "
           f"{miss_ms:.3f} ms (plan {r.timings['plan_ms']} dispatch "
           f"{r.timings['dispatch_ms']} collect {r.timings['collect_ms']}); "
@@ -1133,7 +1204,7 @@ def run_analysis(dev):
                                           for v in report.violations))
     (failures, checked), launches = counted(
         "analysis contracts", lambda: check_all_contracts(device=dev),
-        kernels=("fct_count_exact_int32", "fct_count_exact_int64"))
+        kernels=("fct_count_routed_int32", "fct_count_routed_int64"))
     check(not failures, f"contracts: {failures}")
     answers = []
     for script in ("quickstart_torch.py", "fct_query_expansion_torch.py"):
@@ -1175,7 +1246,7 @@ def run_pipeline(torch, np, session, full, oracle):
     prof = profile_device(
         torch, lambda: [f.result(timeout=900)
                         for f in [session.submit(full) for _ in range(8)]],
-        {"fct_count": "fct_count_kernel"})
+        {"fct_count": "fct_count"})
     session.close()
     print(f"[pipeline] 8 submits {burst_ms:.3f} ms against 8 sequential "
           f"queries {seq_ms:.3f} ms (ratio {burst_ms / seq_ms:.4f}); FIFO; "
@@ -1283,7 +1354,8 @@ def run_engine_paths(torch, np, args, dev, session, full, oracle):
               key=lambda i: plans[i].fact.ref.n_rows)
     (two, ms), launches["two_jobs"] = counted("two jobs", lambda: timed(
         torch, dev, lambda: run_cn_plan_two_jobs(plans[big], mesh,
-                                                 cache=cache)))
+                                                 cache=cache)),
+        kernels=("fct_count_exact_int32",))
     check(np.array_equal(two, per_cn[big]),
           "two-job path differs from the CN's run_plans_individual row")
     trace = Trace()
@@ -1292,7 +1364,7 @@ def run_engine_paths(torch, np, args, dev, session, full, oracle):
             "two jobs with a checkpoint", lambda: timed(
                 torch, dev, lambda: run_cn_plan_two_jobs(
                     plans[big], mesh, checkpoint_dir=ckpt_dir, cache=cache),
-                trace))
+                trace), kernels=("fct_count_exact_int32",))
         size = sum(f.stat().st_size for f in Path(ckpt_dir).rglob("*")
                    if f.is_file())
     check(np.array_equal(two_ck, per_cn[big]),
@@ -1308,7 +1380,7 @@ def run_engine_paths(torch, np, args, dev, session, full, oracle):
     (t64, ms), launches["batched_int64"] = counted(
         "storeless int64", lambda: timed(torch, dev, lambda: eng64.run_plans(
             plans, mesh, accum=INT64_EXACT)),
-        kernels=("fct_count_exact_int64",))
+        kernels=("fct_count_routed_int64",))
     check(np.array_equal(with_map_only(t64), oracle),
           "storeless int64 run_plans differs from fct_star")
     print(f"[engine_paths] storeless int64 {ms:.3f} ms, store.upload_bytes "
@@ -1472,7 +1544,7 @@ def read_counts():
     return launches, paths
 
 
-def counted(label, fn, kernels=("fct_count_exact_int32",)):
+def counted(label, fn, kernels=("fct_count_routed_int32",)):
     """Runs one path with every count set to 0 just before it and read just
     after.  Fails unless each of ``kernels`` launched in that run and no op
     took its plain version; returns (fn's result, the run's launches by
@@ -3389,17 +3461,19 @@ def main() -> int:
 
     t0 = time.perf_counter()
     phase("profile", t0, profile_device(
-        torch, lambda: session.query(req), {"fct_count": "fct_count_kernel"}))
+        torch, lambda: session.query(req), {"fct_count": "fct_count"}))
 
     t0 = time.perf_counter()
     report = []
     for name, (dtype_name, replaces) in KERNELS.items():
+        # the main path's largest routed call per dtype, its routed text
+        # gathered into the plain layout
         dtype = getattr(torch, dtype_name)
         if dtype in largest:
-            tokens, weights, vocab = largest[dtype]
+            tokens, weights, vocab = materialized(*largest[dtype])
         else:   # off the main path: the int32 path's largest call, with its
             # nonzero-weight mask as weights so every bin stays below 2^24
-            tokens, weights, vocab = largest[torch.int32]
+            tokens, weights, vocab = materialized(*largest[torch.int32])
             weights = (weights != 0).to(dtype)
         err = compare_at_shape(torch, ops, name, tokens, weights, vocab)
         # "equal"/"max_abs_err" hold at this entry's shape; the small cases
@@ -3420,13 +3494,31 @@ def main() -> int:
               f"{entry['all_rows_uniform_tokens_ms']:.4f} ms; bound "
               f"{entry['bound_ms']:.4f} ms on the non-zero rows' bytes, "
               f"{entry['padded_bound_ms']:.4f} ms on every token", flush=True)
-    del largest, tokens, weights
+    del tokens, weights
+    torch.cuda.empty_cache()
+    for name, (dtype_name, replaces) in ROUTED_KERNELS.items():
+        entry = {"name": name, "route": "cuda", "source": SOURCE,
+                 "replaces": replaces, "launches": launches[name],
+                 "tolerance": 0}
+        entry.update(time_routed(torch, ops, kernel,
+                                 *largest[getattr(torch, dtype_name)]))
+        report.append(entry)
+        print(f"[fct_timing] {name} at {entry['shape']} (P {entry['P']}, "
+              f"cap {entry['cap']}): zero-weight rows "
+              f"{entry['zero_weight_share']:.4f}; routed kernel "
+              f"{entry['ms']:.4f} ms, index_select + fct_count "
+              f"{entry['plain_ms']:.4f} ms; bound {entry['bound_ms']:.4f} "
+              f"ms on the non-zero rows' bytes", flush=True)
+    del largest
     torch.cuda.empty_cache()
     phase("fct_timing", t0, "each fct_count instantiation bit-equal to its "
                             "plain version at the main path's largest call "
-                            "per dtype, then the median of 20 CUDA-event "
-                            "timings after 3 warm-up calls, and the same on "
-                            "uniform tokens")
+                            "per dtype (its routed text gathered), then the "
+                            "median of 20 CUDA-event timings after 3 "
+                            "warm-up calls, and the same on uniform tokens; "
+                            "each routed instantiation bit-equal to "
+                            "index_select + fct_count at that call, both "
+                            "timed")
 
     t0 = time.perf_counter()
     path_launches, serve_smoke = run_serve(torch, np, args, dev, schema,

@@ -77,8 +77,8 @@ _ENGINE_COUNTERS = ("hits", "misses", "traces", "evictions",
                     "store_upload_bytes", "store_chunk_assembles",
                     "device_to_host_bytes", "groups_pruned", "pruned_rows",
                     "fct_count_tokens", "send_uploads", "send_hits",
-                    "route_slots", "route_rows", "graph_eager",
-                    "graph_captures", "graph_replays")
+                    "route_slots", "route_rows", "mr2_by_reference",
+                    "graph_eager", "graph_captures", "graph_replays")
 
 
 def _cn_includes(cn: StarCN, role: str, dim_index: int) -> bool:

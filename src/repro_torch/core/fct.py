@@ -1,15 +1,18 @@
 """The two MapReduce jobs as one fused device program on a virtual mesh
 (paper §4.3–§4.4).
 
-MR¹ (statistics): route tuple-set rows per the static plan (gather →
-all_to_all → mask), build dense ``num``-arrays per dimension and worker,
+MR¹ (statistics): route tuple-set rows' keys per the static plan (gather
+→ all_to_all → mask), build dense ``num``-arrays per dimension and worker,
 probe them per fact row to produce fact volumes and per-dimension ``vol``
 contributions.
 
 MR² (term frequency): weighted token histogram of every routed payload with
-its volume (the ``fct_count`` kernel on CUDA, its plain version on the CPU),
-summed over workers — the "aggregation equal transformation" of Theorem 1 —
-then a host-side top-k with the Def. 6 exclusions.
+its volume, summed over workers — the "aggregation equal transformation" of
+Theorem 1 — then a host-side top-k with the Def. 6 exclusions.  MR² reads
+the payloads by reference: a routed slot's tokens are read through the send
+table from the tuple set's own text (the routed ``fct_count`` kernel on
+CUDA, its plain version on the CPU), so routing moves keys and masks only
+and no routed copy of the text is made.
 
 Layout.  The reference runs one worker per device under ``shard_map`` and
 ``vmap``s the body over the CNs of a group.  Here both are explicit leading
@@ -21,7 +24,9 @@ worker: a dimension row is replicated to several workers).  MR² flattens it
 into the histogram's row axis, so one kernel launch per relation counts all
 CNs and all workers at once; the psum over workers is folded into that sum,
 which is bit-identical because integer addition is associative modulo the
-accumulator width.
+accumulator width.  The reference routes the text beside the keys; here the
+kernel's slot ``(n, dst, src*C + c)`` reads the very row the reference's
+buffer holds there, so the counts are the same.
 
 Index semantics follow the reference explicitly, since torch index ops raise
 where JAX's clamp or drop: gathers wrap a negative index once and then clamp
@@ -30,12 +35,14 @@ range (:func:`_scatter_add_drop`).  On the main path every index is in range.
 
 The engine (``runtime/engine.py``) runs a signature group's program as three
 stages: routing (:func:`_route_cn`), MR¹ (:func:`_mr1_volumes`) and MR²
-(:func:`_mr2_histograms`) with its aggregation; :func:`run_cn_plan` composes
-the same three for one CN.
+(:func:`_mr2_histograms`, over the group's arguments and the volumes) with
+its aggregation; :func:`run_cn_plan` composes the same three for one CN.
 
 The two jobs are also separable (:func:`run_cn_plan_two_jobs`): job 1
 returns the vol-array artifact that job 2 consumes, so the MR¹→MR² boundary
 can be checkpointed — the paper's "two MapReduce jobs" as two programs.  The
+artifact is the spill boundary and holds the routed text itself
+(:func:`_routed_text`); job 2 counts it with the plain-layout kernel.  The
 fused path is the default.
 
 The reference's ``make_fct_program`` and ``lower_cn_plan`` have no
@@ -57,7 +64,8 @@ from repro_torch.core.plan import CNPlan
 from repro_torch.data.schema import StarSchema
 from repro_torch.distributed.checkpoint import (restore_checkpoint,
                                                 save_checkpoint)
-from repro_torch.kernels.fct_count.ops import weighted_histogram
+from repro_torch.kernels.fct_count.ops import (routed_histogram,
+                                                weighted_histogram)
 from repro_torch.launch.mesh import VirtualMesh, all_to_all, psum
 from repro_torch.obs import span as obs_span
 from repro_torch.runtime.batch import (PlanSignature, pad_plan_arrays,
@@ -85,43 +93,60 @@ def _scatter_add_drop(target: torch.Tensor, dim: int, idx: torch.Tensor,
                         torch.where(ok, src, torch.zeros_like(src)))
 
 
-def _route(texts: Sequence[torch.Tensor], keys: Sequence[torch.Tensor],
-           send: torch.Tensor, cols: Optional[torch.Tensor] = None):
-    """Gather rows into per-destination buffers and all_to_all them, for a
-    batch of N CNs.
+def _route(keys: Sequence[torch.Tensor], send: torch.Tensor,
+           cols: Optional[torch.Tensor] = None):
+    """Gather rows' keys into per-destination buffers and all_to_all them,
+    for a batch of N CNs.
 
-    ``texts[n]`` is CN n's ``[P, S, L]`` text, ``keys[n]`` its ``[P, S]``
-    (dim) or ``[P, S, m_all]`` (fact) keys — separate tensors, so CNs over
-    one store-resident tuple set share it without a stacked copy.  ``send``
-    is ``[N, P(src), P(dst), C]`` (local row index, -1 pad); ``cols``
-    ``[N, m]`` selects each CN's fact key columns.  Returns the received
-    ``(text [N, P, P*C, L], keys [N, P, P*C(, m)], mask [N, P, P*C])``.
-    """
+    ``keys[n]`` is CN n's ``[P, S]`` (dim) or ``[P, S, m_all]`` (fact) keys
+    — separate tensors, so CNs over one store-resident tuple set share it
+    without a stacked copy.  ``send`` is ``[N, P(src), P(dst), C]`` (local
+    row index, -1 pad); ``cols`` ``[N, m]`` selects each CN's fact key
+    columns.  Returns the received ``(keys [N, P, P*C(, m)], mask [N, P,
+    P*C])``; the text stays where it is, for MR² to read by reference."""
     N, P, _, C = send.shape
-    S, L = texts[0].shape[1:]
-    dev = send.device
+    S = keys[0].shape[1]
     send_t = all_to_all(send).long()           # [N, dst, src, C]
     mask = (send_t >= 0).reshape(N, P, P * C)
-    # a valid plan names rows in [0, S) only; -1 pads are masked, and the
-    # clamp keeps every gather in bounds
-    local = send_t.clamp(0, S - 1)
-    flat = (torch.arange(P, device=dev).view(1, 1, P, 1) * S
-            + local).reshape(N, P * P * C)
-    rtext = torch.empty((N, P * P * C, L), dtype=texts[0].dtype, device=dev)
+    flat = _routed_rows(send_t, S)
     k_tail = keys[0].shape[2:] if cols is None else (cols.shape[1],)
     rkeys = torch.empty((N, P * P * C) + tuple(k_tail), dtype=keys[0].dtype,
-                        device=dev)
+                        device=send.device)
     for n in range(N):
-        torch.index_select(texts[n].reshape(P * S, L), 0, flat[n],
-                           out=rtext[n])
         k = keys[n].reshape((P * S,) + tuple(keys[n].shape[2:]))
         if cols is None:
             torch.index_select(k, 0, flat[n], out=rkeys[n])
         else:
             rkeys[n] = k.index_select(0, flat[n]).index_select(
                 1, _clamp_index(cols[n].long(), k.shape[1]))
-    return (rtext.view(N, P, P * C, L),
-            rkeys.view((N, P, P * C) + tuple(k_tail)), mask)
+    return rkeys.view((N, P, P * C) + tuple(k_tail)), mask
+
+
+def _routed_rows(send_t: torch.Tensor, S: int) -> torch.Tensor:
+    """``[N, P*P*C]`` flat source row ``src*S + local`` of every routed
+    slot, from the received ``[N, P(dst), P(src), C]`` send table.  A valid
+    plan names rows in ``[0, S)`` only; -1 pads are masked, and the clamp
+    keeps every gather in bounds."""
+    N, P, _, C = send_t.shape
+    local = send_t.clamp(0, S - 1)
+    return (torch.arange(P, device=send_t.device).view(1, 1, P, 1) * S
+            + local).reshape(N, P * P * C)
+
+
+def _routed_text(texts: Sequence[torch.Tensor],
+                 send: torch.Tensor) -> torch.Tensor:
+    """The routed copy of N CNs' ``[P, S, L]`` texts, ``[N, P, P*C, L]``:
+    the text the reference's all_to_all delivers, for the two-job path's
+    vol-array artifact.  The fused path never makes it."""
+    N, P, _, C = send.shape
+    S, L = texts[0].shape[1:]
+    flat = _routed_rows(all_to_all(send).long(), S)
+    rtext = torch.empty((N, P * P * C, L), dtype=texts[0].dtype,
+                        device=send.device)
+    for n in range(N):
+        torch.index_select(texts[n].reshape(P * S, L), 0, flat[n],
+                           out=rtext[n])
+    return rtext.view(N, P, P * C, L)
 
 
 def _cn_joined(tables: Optional[List[torch.Tensor]]):
@@ -134,14 +159,14 @@ def _cn_joined(tables: Optional[List[torch.Tensor]]):
 
 
 def _route_cn(fact: Dict, dims: Sequence[Dict]):
-    """MR¹ shuffle stage: route every relation of a CN batch per its send
-    tables, joined first (:func:`_cn_joined`).  ``fact["cols"]`` (optional)
-    names each CN's columns of the full-width store-resident fact key
-    matrix."""
-    routed_fact = _route(fact["text"], fact["keys"], _cn_joined(fact["send"]),
+    """MR¹ shuffle stage: route the keys of every relation of a CN batch
+    per its send tables, joined first (:func:`_cn_joined`), -> ``(routed
+    fact, [routed dims])``, each ``(keys, mask)``.  ``fact["cols"]``
+    (optional) names each CN's columns of the full-width store-resident
+    fact key matrix."""
+    routed_fact = _route(fact["keys"], _cn_joined(fact["send"]),
                          _cn_joined(fact.get("cols")))
-    routed_dims = [_route(d["text"], d["keys"], _cn_joined(d["send"]))
-                   for d in dims]
+    routed_dims = [_route(d["keys"], _cn_joined(d["send"])) for d in dims]
     return routed_fact, routed_dims
 
 
@@ -153,12 +178,12 @@ def _mr1_volumes(routed_fact, routed_dims, domains: Tuple[int, ...],
     ``[N, P, rows]`` in the policy dtype; products wrap as the reference's
     do."""
     acc = accum.dtype
-    _, fkeys, fmask = routed_fact
+    fkeys, fmask = routed_fact
     N, P = fmask.shape[:2]
     dev = fmask.device
     m = len(routed_dims)
     nums = []
-    for (_, dkeys, dmask), dom in zip(routed_dims, domains):
+    for (dkeys, dmask), dom in zip(routed_dims, domains):
         num = torch.zeros((N, P, dom), dtype=torch.int32, device=dev)
         _scatter_add_drop(num, 2, dkeys.long(), dmask.to(torch.int32))
         nums.append(num)
@@ -177,26 +202,28 @@ def _mr1_volumes(routed_fact, routed_dims, domains: Tuple[int, ...],
                 others = others * probes[j]
         contrib = torch.zeros((N, P, domains[i]), dtype=acc, device=dev)
         _scatter_add_drop(contrib, 2, fk[i], others)
-        _, dkeys, dmask = routed_dims[i]
+        dkeys, dmask = routed_dims[i]
         dim_vols.append(
             contrib.gather(2, _clamp_index(dkeys.long(), domains[i]))
             * dmask.to(acc))
     return vol_fact, dim_vols
 
 
-def _mr2_histograms(routed_fact, routed_dims, vol_fact, dim_vols,
+def _mr2_histograms(fact: Dict, dims: Sequence[Dict], vol_fact, dim_vols,
                     vocab: int) -> torch.Tensor:
-    """MR² on routed relations and their volumes: one weighted histogram
-    launch per relation, the workers flattened into the row axis, summed
-    -> ``[N, vocab]``."""
-    ftext = routed_fact[0]
-    N, L = ftext.shape[0], ftext.shape[-1]
-    hist = weighted_histogram(ftext.reshape(N, -1, L),
-                              vol_fact.reshape(N, -1), vocab)
-    for (dtext, _, _), w in zip(routed_dims, dim_vols):
-        hist = hist + weighted_histogram(
-            dtext.reshape(N, -1, dtext.shape[-1]),
-            w.to(hist.dtype).reshape(N, -1), vocab)
+    """MR² by reference on a CN batch's relations and their routed volumes:
+    one weighted histogram launch per relation (:func:`routed_histogram`),
+    which reads each routed slot's tokens through the relation's send
+    tables, joined, from its texts (``"ptrs"``, where given, their resident
+    address table), the workers flattened into the row axis, summed ->
+    ``[N, vocab]``."""
+    def count(rel: Dict, weights: torch.Tensor) -> torch.Tensor:
+        return routed_histogram(rel["text"], _cn_joined(rel["send"]),
+                                weights, vocab, rel.get("ptrs"))
+
+    hist = count(fact, vol_fact)
+    for d, w in zip(dims, dim_vols):
+        hist = hist + count(d, w.to(hist.dtype))
     return hist
 
 
@@ -218,10 +245,11 @@ def run_cn_plan(plan: CNPlan, mesh: VirtualMesh,
     if mesh.n_workers != plan.n_devices:
         raise ValueError(f"plan built for {plan.n_devices} workers, mesh has "
                          f"{mesh.n_workers}")
-    routed = _route_cn(*plan_to_tensors(plan, mesh.device))
-    vols = _mr1_volumes(*routed, tuple(plan.key_domains[i]
-                                       for i in plan.included), accum)
-    hist = _mr2_histograms(*routed, *vols, plan.vocab_size)
+    fact, dims = plan_to_tensors(plan, mesh.device)
+    vols = _mr1_volumes(*_route_cn(fact, dims),
+                        tuple(plan.key_domains[i] for i in plan.included),
+                        accum)
+    hist = _mr2_histograms(fact, dims, *vols, plan.vocab_size)
     return psum(hist[0].to(accum.dtype)).cpu().numpy().astype(np.int64)
 
 
@@ -234,20 +262,20 @@ def _device_job1(fact: Dict, dims: Sequence[Dict], *,
     """MR¹ only, for one CN: route + num-arrays + volumes.  Returns the
     vol-array artifact ``{"fact": {"text", "vol"}, "dims": [{"text",
     "vol"}, ...]}`` — the paper's reducer output that MapReduce 2nd
-    consumes.  Each routed ``[1, P(dst), P*C, ...]`` buffer is viewed in the
-    reference's global layout ``[P*P*C, ...]``, destination-major: the
-    concatenation of the workers' shards."""
-    routed_fact, routed_dims = _route_cn(fact, dims)
-    vol_fact, dim_vols = _mr1_volumes(routed_fact, routed_dims, domains,
-                                      accum)
+    consumes.  The artifact holds each relation's routed text, gathered
+    here (:func:`_routed_text`): it is the boundary the paper spills, so it
+    must stand alone.  Each routed ``[1, P(dst), P*C, ...]`` buffer is
+    viewed in the reference's global layout ``[P*P*C, ...]``,
+    destination-major: the concatenation of the workers' shards."""
+    vol_fact, dim_vols = _mr1_volumes(*_route_cn(fact, dims), domains, accum)
 
-    def flat(text, vol):
+    def flat(rel, vol):
+        text = _routed_text(rel["text"], _cn_joined(rel["send"]))
         return {"text": text.reshape((-1,) + tuple(text.shape[3:])),
                 "vol": vol.reshape(-1)}
 
-    return {"fact": flat(routed_fact[0], vol_fact),
-            "dims": [flat(dtext, w)
-                     for (dtext, _, _), w in zip(routed_dims, dim_vols)]}
+    return {"fact": flat(fact, vol_fact),
+            "dims": [flat(d, w) for d, w in zip(dims, dim_vols)]}
 
 
 def _device_job2(vol_arrays: Dict, *, vocab: int,

@@ -9,6 +9,16 @@
 // Computes, for every batch entry b (a candidate network of one engine
 // dispatch),
 //   out[b, v] += sum_row weights[b, row] * #{j : tokens[b, row, j] == v}
+// Two layouts of the rows, one body:
+//   - plain: tokens [B, R, L], row r of entry b at tokens[b, r];
+//   - routed (MR2 by reference): entry b's rows are the P*P*C slots of its
+//     routed relation, (dst, src, c) in that order, and slot (dst, src, c)
+//     reads source row src*S + clamp(send[b, src, dst, c], 0, S-1) of the
+//     CN's own store-resident text [P, S, L], whose base is texts[b] (a
+//     device table of pointers).  That is the routing gather and the
+//     all_to_all's transposition, read where they lie: no routed copy of
+//     the text is made.  The one read it adds is the 4-byte send entry of
+//     each row whose weight is not 0.
 // PAD (0) is never counted, tokens outside [0, vocab) are dropped, and the
 // integer instantiations are exact modulo 2^width of the weight type,
 // wrap-around included (integer adds are exact and order-independent).
@@ -20,6 +30,9 @@
 // of the rows with a non-zero weight, and write B*V bins, against 3.35 TB/s
 // on an H100 SXM; the arithmetic is one add per token.  On the FCT main path
 // most rows weigh 0 (padding to a power of two, rows that join nothing).
+// The routed layout reads 4 bytes more a non-zero row, its send entry, and
+// its tokens lie scattered over the source text, one row (48-64 bytes) a
+// run.
 //
 // Design: grid (row_chunks x vocab_tiles, batch), vocab tile fastest, so the
 // blocks of one row chunk run side by side and the second read of a chunk
@@ -34,6 +47,11 @@
 //     loads in flight a lane; a lane skips the loads of rows whose weight
 //     (shuffled from the lane that read it) is 0.  No division per token:
 //     the (row, column) of a lane's next load is stepped by constants.
+//   - Routed rows.  Beside its weight, each lane of a group reads the send
+//     entry of its own row when the weight is not 0 (the 4 groups' entries
+//     in flight together), and a token load takes its row's source row
+//     from the lane that read it, by a shuffle as the weight.  Alignment is
+//     decided per block, from the CN's text base.
 //   - Bins.  int32 and float32 bins take the shared-memory atomics of
 //     their width.  int64 bins are two 32-bit words: the low word's atomic
 //     returns its old value, and the lane whose add wrapped it carries one
@@ -121,12 +139,31 @@ __device__ __forceinline__ void count_unit(int4 t, T w, Bins<T>& bins,
   count(t.w, w, bins, v0, width);
 }
 
-// rows [row0, row1) of one batch entry; Unit is int4 (4 tokens) or int
-template <typename T, typename Unit>
+// where a routed row's tokens lie: slot r of a batch entry is (dst, src, c)
+// = (r / (P C), r / C % P, r % C), and reads source row
+// src * S + clamp(send[src, dst, c], 0, S - 1) of the entry's text
+struct Route {
+  const int32_t* send;  // this batch entry's [P(src), P(dst), C] table
+  int P, C, S;
+  __device__ __forceinline__ int source_row(int64_t r) const {
+    const int pc = P * C;
+    const int slot = static_cast<int>(r);
+    const int dst = slot / pc, j = slot - dst * pc;
+    const int src = j / C, c = j - src * C;
+    const int e = __ldg(send + (src * P + dst) * C + c);
+    return src * S + min(max(e, 0), S - 1);
+  }
+};
+
+// rows [row0, row1) of one batch entry; Unit is int4 (4 tokens) or int.
+// Plain rows lie one after another from `units`; routed rows (kRouted)
+// where `route` says, `units` being the entry's text
+template <typename T, typename Unit, bool kRouted>
 __device__ __forceinline__ void count_rows(const Unit* __restrict__ units,
                                            const T* __restrict__ w,
-                                           int64_t row0, int64_t row1, int q,
-                                           Bins<T>& bins, int v0, int width) {
+                                           const Route route, int64_t row0,
+                                           int64_t row1, int q, Bins<T>& bins,
+                                           int v0, int width) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   // in a group of 32 rows of q units each, lane takes units lane + 32 i
   // (i < q): unit j is row j / q, column j % q; j += 32 steps the row by
@@ -144,11 +181,22 @@ __device__ __forceinline__ void count_rows(const Unit* __restrict__ units,
       const int64_t r = g0 + k * kStride + lane;
       wg[k] = r < row1 ? w[r] : T(0);
     }
+    // routed: the source row of this lane's row in each group, read only
+    // where the row weighs something
+    int src_row[kGroups];
+#pragma unroll
+    for (int k = 0; k < kGroups; ++k) {
+      src_row[k] = 0;
+      if constexpr (kRouted) {
+        if (wg[k] != T(0))
+          src_row[k] = route.source_row(g0 + k * kStride + lane);
+      }
+    }
 #pragma unroll
     for (int k = 0; k < kGroups; ++k) {
       const T wr = wg[k];
       if (__ballot_sync(0xffffffffu, wr != T(0)) == 0) continue;
-      const Unit* ug = units + (g0 + k * kStride) * q;
+      const Unit* ug = kRouted ? units : units + (g0 + k * kStride) * q;
       int rr = rr0, cc = cc0;
       for (int i = 0; i < q; i += kUnroll) {
         Unit val[kUnroll] = {};
@@ -157,7 +205,11 @@ __device__ __forceinline__ void count_rows(const Unit* __restrict__ units,
         for (int u = 0; u < kUnroll; ++u) {
           const T x = __shfl_sync(0xffffffffu, wr, rr & 31);
           wv[u] = i + u < q ? x : T(0);
-          if (wv[u] != T(0)) val[u] = __ldg(ug + rr * q + cc);
+          int64_t at = rr * q + cc;
+          if constexpr (kRouted)
+            at = static_cast<int64_t>(
+                     __shfl_sync(0xffffffffu, src_row[k], rr & 31)) * q + cc;
+          if (wv[u] != T(0)) val[u] = __ldg(ug + at);
           cc += dc;
           rr += dr;
           if (cc >= q) {
@@ -173,13 +225,14 @@ __device__ __forceinline__ void count_rows(const Unit* __restrict__ units,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-fct_count_kernel(const int32_t* __restrict__ tokens,
-                 const T* __restrict__ weights, T* __restrict__ out,
-                 int64_t rows, int text_len, int vocab, int tile, int tiles,
-                 int64_t rows_per_chunk) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+// one block: zero its vocab tile of bins, count its row chunk of batch
+// entry blockIdx.y (16-byte loads when the rows allow them), merge the bins
+// into out[b]
+template <typename T, bool kRouted>
+__device__ __forceinline__ void histogram_block(
+    void* smem_raw, const int32_t* __restrict__ tok, const T* __restrict__ w,
+    const Route route, T* __restrict__ out, int64_t rows, int text_len,
+    int vocab, int tile, int tiles, int64_t rows_per_chunk) {
   const int64_t b = blockIdx.y;
   const int64_t chunk = blockIdx.x / tiles;
   const int v0 = static_cast<int>(blockIdx.x % tiles) * tile;
@@ -190,13 +243,13 @@ fct_count_kernel(const int32_t* __restrict__ tokens,
 
   const int64_t row0 = chunk * rows_per_chunk;
   const int64_t row1 = min(rows, row0 + rows_per_chunk);
-  const int32_t* tok = tokens + b * rows * text_len;
-  const T* w = weights + b * rows;
-  if (text_len % 4 == 0 && reinterpret_cast<uintptr_t>(tokens) % 16 == 0)
-    count_rows(reinterpret_cast<const int4*>(tok), w, row0, row1,
-               text_len / 4, bins, v0, width);
+  if (text_len % 4 == 0 && reinterpret_cast<uintptr_t>(tok) % 16 == 0)
+    count_rows<T, int4, kRouted>(reinterpret_cast<const int4*>(tok), w,
+                                 route, row0, row1, text_len / 4, bins, v0,
+                                 width);
   else
-    count_rows(tok, w, row0, row1, text_len, bins, v0, width);
+    count_rows<T, int, kRouted>(tok, w, route, row0, row1, text_len, bins,
+                                v0, width);
   __syncthreads();
 
   T* dst = out + b * vocab + v0;
@@ -207,22 +260,85 @@ fct_count_kernel(const int32_t* __restrict__ tokens,
 }
 
 template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+fct_count_kernel(const int32_t* __restrict__ tokens,
+                 const T* __restrict__ weights, T* __restrict__ out,
+                 int64_t rows, int text_len, int vocab, int tile, int tiles,
+                 int64_t rows_per_chunk) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int64_t b = blockIdx.y;
+  histogram_block<T, false>(smem_raw, tokens + b * rows * text_len,
+                            weights + b * rows, Route{}, out, rows, text_len,
+                            vocab, tile, tiles, rows_per_chunk);
+}
+
+// batch entry b reads its rows through send[b] from the text at texts[b]
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+fct_count_routed_kernel(const int64_t* __restrict__ texts,
+                        const int32_t* __restrict__ send,
+                        const T* __restrict__ weights, T* __restrict__ out,
+                        int P, int C, int S, int text_len, int vocab, int tile,
+                        int tiles, int64_t rows_per_chunk) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int64_t b = blockIdx.y;
+  const int64_t rows = static_cast<int64_t>(P) * P * C;
+  const Route route{send + b * rows, P, C, S};
+  histogram_block<T, true>(smem_raw,
+                           reinterpret_cast<const int32_t*>(texts[b]),
+                           weights + b * rows, route, out, rows, text_len,
+                           vocab, tile, tiles, rows_per_chunk);
+}
+
+// the grid and shared memory of one launch over `rows` rows a batch entry
+template <typename T>
+struct Grid {
+  dim3 grid;
+  int smem, tiles;
+  Grid(int64_t batch, int64_t rows, int vocab, int tile,
+       int64_t rows_per_chunk) {
+    const int64_t t = (vocab + tile - 1) / tile;
+    const int64_t chunks = (rows + rows_per_chunk - 1) / rows_per_chunk;
+    tiles = static_cast<int>(t);
+    smem = 4 * Bins<T>::words * (vocab < tile ? vocab : tile);
+    grid = dim3(static_cast<unsigned>(chunks * t),
+                static_cast<unsigned>(batch));
+  }
+};
+
+template <typename T>
 cudaError_t launch(const void* tokens, const void* weights, void* out,
                    int64_t batch, int64_t rows, int text_len, int vocab,
                    int tile, int64_t rows_per_chunk, void* stream) {
-  const int64_t tiles = (vocab + tile - 1) / tile;
-  const int64_t chunks = (rows + rows_per_chunk - 1) / rows_per_chunk;
-  const int smem = 4 * Bins<T>::words * (vocab < tile ? vocab : tile);
+  const Grid<T> g(batch, rows, vocab, tile, rows_per_chunk);
   cudaError_t err = cudaFuncSetAttribute(
-      fct_count_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fct_count_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      g.smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>(chunks * tiles),
-                  static_cast<unsigned>(batch));
-  fct_count_kernel<T><<<grid, kThreads, smem,
+  fct_count_kernel<T><<<g.grid, kThreads, g.smem,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(tokens), static_cast<const T*>(weights),
-      static_cast<T*>(out), rows, text_len, vocab, tile,
-      static_cast<int>(tiles), rows_per_chunk);
+      static_cast<T*>(out), rows, text_len, vocab, tile, g.tiles,
+      rows_per_chunk);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_routed(const void* texts, const void* send,
+                          const void* weights, void* out, int64_t batch,
+                          int P, int C, int S, int text_len, int vocab,
+                          int tile, int64_t rows_per_chunk, void* stream) {
+  const Grid<T> g(batch, static_cast<int64_t>(P) * P * C, vocab, tile,
+                  rows_per_chunk);
+  cudaError_t err = cudaFuncSetAttribute(
+      fct_count_routed_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      g.smem);
+  if (err != cudaSuccess) return err;
+  fct_count_routed_kernel<T><<<g.grid, kThreads, g.smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(texts), static_cast<const int32_t*>(send),
+      static_cast<const T*>(weights), static_cast<T*>(out), P, C, S, text_len,
+      vocab, tile, g.tiles, rows_per_chunk);
   return cudaGetLastError();
 }
 
@@ -243,5 +359,19 @@ FCT_ENTRY(fct_count_int32, int32_t)
 FCT_ENTRY(fct_count_int64, int64_t)
 FCT_ENTRY(fct_count_float32, float)
 #undef FCT_ENTRY
+
+#define FCT_ROUTED_ENTRY(NAME, T)                                           \
+  int NAME(const void* texts, const void* send, const void* weights,        \
+           void* out, int64_t batch, int P, int C, int S, int text_len,     \
+           int vocab, int tile, int64_t rows_per_chunk, void* stream) {     \
+    return static_cast<int>(launch_routed<T>(texts, send, weights, out,     \
+                                             batch, P, C, S, text_len,      \
+                                             vocab, tile, rows_per_chunk,   \
+                                             stream));                      \
+  }
+
+FCT_ROUTED_ENTRY(fct_count_routed_int32, int32_t)
+FCT_ROUTED_ENTRY(fct_count_routed_int64, int64_t)
+#undef FCT_ROUTED_ENTRY
 
 }  // extern "C"

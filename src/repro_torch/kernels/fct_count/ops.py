@@ -12,17 +12,25 @@ Integer weights (int32, int64) take the integer-exact kernel
 instantiations, float32 weights the float one (exact only for totals below
 2^24; its atomics add in no fixed order).
 
+:func:`routed_histogram` is MR² by reference, dispatched the same way: on
+the card the routed kernel reads each routed slot's tokens through the
+send table from the CNs' store-resident texts; the plain version builds
+the routed tokens and counts them.
+
 ``PATH_COUNTS`` tallies which path each call took ("ref", "cuda_exact",
-"cuda_float") so a run can show that its histograms went through the kernel.
+"cuda_float", "cuda_routed") so a run can show that its histograms went
+through the kernel.
 """
 from __future__ import annotations
+
+from typing import Optional, Sequence
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.fct_count import kernel, ref
 
-PATH_COUNTS = {"ref": 0, "cuda_exact": 0, "cuda_float": 0}
+PATH_COUNTS = {"ref": 0, "cuda_exact": 0, "cuda_float": 0, "cuda_routed": 0}
 
 
 def reset_path_counts() -> None:
@@ -53,3 +61,27 @@ def weighted_histogram(tokens: torch.Tensor, weights: torch.Tensor,
     else:
         raise ValueError(f"unknown fct_count backend {backend!r}")
     return out[0] if unbatched else out
+
+
+def routed_histogram(texts: Sequence[torch.Tensor], send: torch.Tensor,
+                     weights: torch.Tensor, vocab: int,
+                     pointers: Optional[torch.Tensor] = None,
+                     backend: str = "auto") -> torch.Tensor:
+    """freq[n, w] = Σ_(dst, src, c) weights[n, dst, src·C + c] ·
+    count(texts[n][src, clamp(send[n, src, dst, c], 0, S-1)], w).
+
+    ``texts``: N ``[P, S, L]`` int32 texts, ``send [N, P, P, C]`` int32,
+    ``weights [N, P, P*C]`` -> ``[N, vocab]`` in the weight dtype.
+    ``pointers`` (the card only) is the texts' resident address table
+    (``kernel.text_pointers``).  Backends as :func:`weighted_histogram`."""
+    if backend == "auto":
+        backend = "cuda" if send.is_cuda else "ref"
+    if backend == "ref":
+        _build.bump(PATH_COUNTS, "ref")
+        return ref.routed_weighted_histogram(texts, send, weights, vocab)
+    if backend == "cuda":
+        out = kernel.fct_count_routed(texts, send.contiguous(),
+                                      weights.contiguous(), vocab, pointers)
+        _build.bump(PATH_COUNTS, "cuda_routed")
+        return out
+    raise ValueError(f"unknown fct_count backend {backend!r}")

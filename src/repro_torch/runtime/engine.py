@@ -20,9 +20,12 @@ planning:
      DEVICE-RESIDENT tensors (store.py), and take each plan's send tables
      and fact key-column indices from the device copies its routes keep
      (uploaded at the plan's first dispatch): a memoized plan's dispatch
-     ships nothing.  A caller without a store (``store=None``) gets a
-     store of its own for the call, so its columns upload with the call
-     and die with it,
+     ships nothing.  Routing moves keys and masks only; MR² reads each
+     routed slot's tokens through the send table from the store's text
+     (on CUDA through the group's resident table of text addresses, made
+     at its first dispatch).  A caller without a store (``store=None``)
+     gets a store of its own for the call, so its columns upload with the
+     call and die with it,
   6. on CUDA, replay a group whose inputs are the very tensors of an
      earlier dispatch from three CUDA graphs — routing, MR¹, MR² —
      captured at its second dispatch (graphs.py): the same kernels, three
@@ -59,7 +62,8 @@ Tracing.  Each dispatched group is an ``engine.dispatch_group`` obs span on
 the active trace (args ``path``, always ``store``, ``family``, ``n_cns``,
 ``n_devices`` and ``built``, true when the dispatch built its program),
 with children ``store.group_args`` (args ``send_bytes``, the bytes its
-first-use uploads shipped, and ``send_hits``), ``engine.upload`` (``bytes``
+first-use uploads shipped — send tables, key-column indices and text
+address tables — and ``send_hits``), ``engine.upload`` (``bytes``
 0: it only records the first stage event; ``bench/`` still reads it) and
 ``fct.route`` / ``fct.mr1`` / ``fct.mr2``, one around each stage, eager or
 replayed: host time, all of it.  The group span's ``graph`` arg says how
@@ -200,10 +204,11 @@ def _build_stages(sig: PlanSignature, reduce_cns: bool,
     """The program of one signature group as its three stages, over
     ``store_group_args``' device-resident arguments (``core/fct.py``):
 
-      * ``route(fact, dims)`` -> the routed relations,
+      * ``route(fact, dims)`` -> the routed relations' keys and masks,
       * ``mr1(routed)`` -> their volumes,
-      * ``mr2(routed, volumes)`` -> the group's output: the histograms
-        with :func:`_aggregate`.
+      * ``mr2(fact, dims, volumes)`` -> the group's output: the histograms,
+        read by reference from the relations' texts through their send
+        tables, with :func:`_aggregate`.
 
     ``reduce_cns=True``  -> freq[vocab]     (CN axis summed on device)
     ``reduce_cns=False`` -> freq[N, vocab]  (per-CN totals)
@@ -213,8 +218,8 @@ def _build_stages(sig: PlanSignature, reduce_cns: bool,
     def mr1(routed):
         return _mr1_volumes(*routed, domains, sig.accum)
 
-    def mr2(routed, vols):
-        return _aggregate(_mr2_histograms(*routed, *vols, sig.vocab), sig,
+    def mr2(fact, dims, vols):
+        return _aggregate(_mr2_histograms(fact, dims, *vols, sig.vocab), sig,
                           reduce_cns, reduce_scatter)
 
     return _route_cn, mr1, mr2
@@ -229,7 +234,7 @@ def _stage_steps(stages, fact, dims):
     yield routed
     vols = mr1(routed)
     yield vols
-    yield mr2(routed, vols)
+    yield mr2(fact, dims, vols)
 
 
 def topk_signature(vocab: int, n_devices: int, accum: AccumPolicy,
@@ -383,7 +388,9 @@ class FCTEngine:
     ``weighted_histogram`` (rows × ``text_len``, padding included), from
     the launched shapes; ``route_slots`` the gather slots the routing
     launches (``N·P·P·cap`` of every relation, as bucketed) beside
-    ``route_rows``, the rows the group's plans send (``shuffle_rows``).
+    ``route_rows``, the rows the group's plans send (``shuffle_rows``);
+    ``mr2_by_reference`` the MR² launches that read their tokens through
+    a send table, one a relation of every dispatched group.
     ``graph_eager``, ``graph_captures`` and ``graph_replays`` count the
     groups that ran eagerly, were captured as CUDA graphs (and
     replayed once), and were replayed (:attr:`graphs`, graphs.py).
@@ -413,6 +420,7 @@ class FCTEngine:
         self._c_fct_tokens = self.metrics.counter("engine.fct_count_tokens")
         self._c_route_slots = self.metrics.counter("engine.route_slots")
         self._c_route_rows = self.metrics.counter("engine.route_rows")
+        self._c_mr2_by_ref = self.metrics.counter("engine.mr2_by_reference")
         # store path: send tables uploaded at a plan's first dispatch, and
         # those later dispatches found on the device
         self._c_send_uploads = self.metrics.counter("engine.send_uploads")
@@ -530,6 +538,7 @@ class FCTEngine:
         self._c_fct_tokens.inc(_mr2_token_slots(sig, n_stack))
         self._c_route_slots.inc(_route_slots(sig, n_stack))
         self._c_route_rows.inc(sum(p.shuffle_rows for p in group))
+        self._c_mr2_by_ref.inc(1 + len(sig.dims))
         return out
 
     @contextlib.contextmanager
@@ -794,19 +803,20 @@ class FCTEngine:
     def stats(self) -> dict:
         out = self.cache.stats()
         (batches, cns, shipped, d2h, g_pruned, rows_pruned, tokens,
-         send_uploads, send_hits, route_slots, route_rows, g_eager,
-         g_captures, g_replays) = self.metrics.values(
+         send_uploads, send_hits, route_slots, route_rows, mr2_by_ref,
+         g_eager, g_captures, g_replays) = self.metrics.values(
             self._c_batches, self._c_cns, self._c_bytes, self._c_d2h,
             self._c_groups_pruned, self._c_pruned_rows, self._c_fct_tokens,
             self._c_send_uploads, self._c_send_hits, self._c_route_slots,
-            self._c_route_rows, *self._c_graph.values())
+            self._c_route_rows, self._c_mr2_by_ref, *self._c_graph.values())
         out.update(batches_run=batches, cns_run=cns, bytes_shipped=shipped,
                    device_to_host_bytes=d2h,
                    groups_pruned=g_pruned, pruned_rows=rows_pruned,
                    fct_count_tokens=tokens, send_uploads=send_uploads,
                    send_hits=send_hits, route_slots=route_slots,
-                   route_rows=route_rows, graph_eager=g_eager,
-                   graph_captures=g_captures, graph_replays=g_replays)
+                   route_rows=route_rows, mr2_by_reference=mr2_by_ref,
+                   graph_eager=g_eager, graph_captures=g_captures,
+                   graph_replays=g_replays)
         return out
 
 

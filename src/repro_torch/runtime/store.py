@@ -24,6 +24,12 @@ Counters follow the runtime convention: ``store_uploads`` / ``store_hits``
 ``store_chunk_assembles`` (entries built on the device from resident
 per-chunk entries after an append, with no column traffic).
 
+On CUDA, MR² reads a group's texts through a device table of their
+addresses (``kernels/fct_count``'s routed kernel); :meth:`RelationStore.
+text_pointers` makes one per group of text tensors at its first dispatch
+and keeps it as long as those tensors live, so a warm dispatch finds it
+and ships nothing.
+
 Refs over relations with several append chunks (``RelationRef.chunk_parts``)
 are stored per chunk: each part is an entry of its own, content-addressed
 like any ref, and the full ref's entry is assembled from the parts on the
@@ -33,6 +39,7 @@ ships its new chunk, not the relation.
 from __future__ import annotations
 
 import threading
+import weakref
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,6 +47,7 @@ import torch
 
 from repro_torch.core.plan import CNPlan, RelationRef, RelationRoute
 from repro_torch.data.schema import PAD_ID
+from repro_torch.kernels.fct_count.kernel import text_pointers
 from repro_torch.launch.mesh import VirtualMesh
 from repro_torch.obs import default_registry
 from repro_torch.obs import span as obs_span
@@ -90,6 +98,9 @@ class RelationStore:
         # cap -> the null send table, one view each, so a padded group's
         # inputs are the same objects at every dispatch
         self._null_sends: Dict[int, torch.Tensor] = {}
+        # ids of a group's texts -> (weak references to them, their
+        # address table on the device, the entry's token): text_pointers
+        self._pointers: Dict[tuple, tuple] = {}
 
     @property
     def chunk_assembles(self) -> int:
@@ -219,6 +230,44 @@ class RelationStore:
                 cap, self._minus_one.expand(1, P, P, cap))
         return table
 
+    def text_pointers(self, texts: Sequence[torch.Tensor]
+                      ) -> Tuple[torch.Tensor, int]:
+        """The ``[N]`` int64 device table of ``texts``' addresses that the
+        routed MR² kernel reads, and the bytes this call shipped: uploaded
+        the first time these very tensors come together, then found again
+        (0 bytes), the same object each time.  The table is dropped when
+        one of its texts dies, so a freed address that comes back with
+        another tensor never matches."""
+        ident = tuple(map(id, texts))
+
+        def found() -> Optional[torch.Tensor]:      # under self._lock
+            hit = self._pointers.get(ident)
+            if hit is not None and all(r() is t
+                                       for r, t in zip(hit[0], texts)):
+                return hit[1]
+            return None
+
+        with self._lock:
+            table = found()
+        if table is not None:
+            return table, 0
+        table = text_pointers(texts, self.mesh.device)
+        token = object()
+        pointers = self._pointers
+
+        def drop(_ref) -> None:
+            entry = pointers.get(ident)
+            if entry is not None and entry[2] is token:
+                pointers.pop(ident, None)
+
+        with self._lock:
+            raced = found()              # a concurrent dispatch made one
+            if raced is not None:
+                return raced, 0
+            self._pointers[ident] = (
+                tuple(weakref.ref(t, drop) for t in texts), table, token)
+        return table, table.numel() * table.element_size()
+
     # -- lifecycle / introspection ------------------------------------------
 
     def clear(self) -> int:
@@ -227,6 +276,7 @@ class RelationStore:
         with self._lock:
             dropped = len(self._entries)
             self._entries.clear()
+            self._pointers.clear()
             self._g_resident.set(0)
             self.epoch += 1        # fence in-flight uploads (see columns())
             return dropped
@@ -295,11 +345,13 @@ def store_group_args(store: RelationStore, plans: Sequence[CNPlan],
     """Arguments for one stacked signature group on the store path.
 
     ``fact`` / each dim slot is ``{"text": [N device tensors], "keys": [N
-    device tensors], "send": [N device [1, P, P, C] int32]}``, and the fact
-    adds ``"cols"``, N device ``[1, m]`` int32 key-column indices.  Every
-    tensor is resident: columns in the store, each route's send table
-    (padded to the signature's ``cap``) and key-column indices on the route
-    itself, uploaded at its first store-path dispatch.  The program joins
+    device tensors], "send": [N device [1, P, P, C] int32]}``, on CUDA
+    with ``"ptrs"``, the texts' address table (:meth:`RelationStore.
+    text_pointers`), and the fact adds ``"cols"``, N device ``[1, m]``
+    int32 key-column indices.  Every tensor is resident: columns and
+    address tables in the store, each route's send table (padded to the
+    signature's ``cap``) and key-column indices on the route itself,
+    uploaded at its first store-path dispatch.  The program joins
     the tables along the CN axis on the device as the first step of routing
     (``core/fct.py::_cn_joined``), so the lookups here copy nothing, and a
     plan dispatched again ships 0 bytes (``shipped`` counts the first
@@ -326,8 +378,12 @@ def store_group_args(store: RelationStore, plans: Sequence[CNPlan],
         if pad:
             cols.extend([cols[0]] * pad)
             sends.extend([store.null_send(rsig.cap)] * pad)
-        return {"text": [c.text for c in cols],
-                "keys": [c.keys for c in cols], "send": sends}
+        rel = {"text": [c.text for c in cols],
+               "keys": [c.keys for c in cols], "send": sends}
+        if dev.type == "cuda":      # what the routed MR² kernel reads
+            rel["ptrs"], nbytes = store.text_pointers(rel["text"])
+            shipped += nbytes
+        return rel
 
     fact = one_relation([p.fact for p in plans], sig.fact)
     key_cols = []
@@ -344,5 +400,6 @@ def store_group_args(store: RelationStore, plans: Sequence[CNPlan],
     inputs = tuple(t for rel in (fact, *dims)
                    for part in ("text", "keys", "send", "cols")
                    for t in rel.get(part, ()))
+    inputs += tuple(rel["ptrs"] for rel in (fact, *dims) if "ptrs" in rel)
     return GroupArgs(fact, dims, shipped, uploads, n_tables - uploads,
                      inputs)

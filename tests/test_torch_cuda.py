@@ -197,6 +197,108 @@ def test_fct_count_int32_wraps_and_int64_high_bits_bit_equal(cuda_device):
     assert int(got.max()) > (1 << 40)
 
 
+def _routed_case(device, P, S, L, C, N, V, wdtype, hi, shared):
+    """N CNs' ``[P, S, L]`` Zipf texts on the card (one tensor shared by
+    every CN, or one each), their send tables with -1 pads and indices
+    past ``S`` (clamped, as routing clamps them), and weights with zero
+    runs: whole 32-row groups, a padded tail, single rows."""
+    text = [torch.from_numpy(_zipf_text(P, S, L, V)).to(device)
+            for _ in range(1 if shared else N)]
+    texts = text * N if shared else text
+    send = RNG.integers(-1, S + 5, (N, P, P, C)).astype(np.int32)
+    w = RNG.integers(1, hi, (N, P, P * C)).astype(wdtype)
+    w[:, :, (P * C) // 2:] = 0                  # a padded tail
+    w[:, 0, 64:1088] = 0                        # whole groups
+    w[RNG.random(w.shape) < 0.5] = 0            # single rows
+    return (texts, torch.from_numpy(send).to(device),
+            torch.from_numpy(w).to(device))
+
+
+def _routed_held_to_plain(texts, send, w, V, pointers=None):
+    """The routed kernel against ``index_select`` of the routed text (the
+    two-job path's gather) followed by the plain-layout kernel, and against
+    the plain routed version: bit for bit, one routed launch."""
+    from repro_torch.core.fct import _routed_text
+    N, P, _, C = send.shape
+    L = texts[0].shape[-1]
+    name = kernel.ROUTED[w.dtype][1]
+    before = kernel.LAUNCHES[name]
+    got = kernel.fct_count_routed(texts, send, w, V, pointers)
+    assert kernel.LAUNCHES[name] == before + 1
+    rtext = _routed_text(texts, send).reshape(N, P * P * C, L)
+    want = kernel.fct_count(rtext, w.reshape(N, P * P * C), V)
+    plain = ops.routed_histogram(texts, send, w, V, backend="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, plain)
+    return got
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("L", [16, 12, 5])
+@pytest.mark.parametrize("P,C", [(1, 16384), (8, 512)])
+def test_routed_kernel_equals_gather_then_plain(cuda_device, P, C, L,
+                                                shared):
+    """P 1 and P 8 send tables with pads and clamped indices, through the
+    16-byte loads (L 16, 12) and the 4-byte loads (L 5); CNs sharing one
+    store text, and CNs with texts of their own."""
+    N, S, V = 3, 3000, 32768
+    for wdtype, hi in ((np.int32, 1 << 20), (np.int64, 1 << 62)):
+        _routed_held_to_plain(*_routed_case(cuda_device, P, S, L, C, N, V,
+                                            wdtype, hi, shared), V)
+
+
+def test_routed_kernel_wraps_int32_and_carries_int64(cuda_device):
+    """int32 bins past 2^31 wrap as the plain kernel's do; int64 weights
+    with bits 62 and 63 set wrap modulo 2^64; all-zero weights count
+    nothing."""
+    P, S, L, C, N, V = 8, 2000, 12, 1024, 2, 512
+    texts, send, w = _routed_case(cuda_device, P, S, L, C, N, V, np.int32,
+                                  1 << 30, True)
+    got = _routed_held_to_plain(texts, send, w, V)
+    exact = _routed_held_to_plain(texts, send, w.to(torch.int64), V)
+    assert not torch.equal(got.to(torch.int64), exact)     # it wrapped
+    w64 = torch.from_numpy(RNG.integers(-(1 << 63), (1 << 63) - 1,
+                                        tuple(w.shape), dtype=np.int64))
+    got64 = _routed_held_to_plain(texts, send, w64.to(cuda_device), V)
+    assert bool((got64 < 0).any()) and bool((got64 > 0).any())
+    zero = _routed_held_to_plain(texts, send, torch.zeros_like(w), V)
+    assert not bool(zero.any())
+
+
+def test_routed_kernel_replays_from_a_graph(cuda_device):
+    """Captured with a resident pointer table, replayed on new weights in
+    the same buffer: the replay reads the texts through the table, bit for
+    bit the eager kernel."""
+    P, S, L, C, N, V = 8, 1000, 12, 256, 4, 4096
+    texts, send, w = _routed_case(cuda_device, P, S, L, C, N, V, np.int32,
+                                  1 << 16, False)
+    pointers = kernel.text_pointers(texts, cuda_device)
+    assert pointers.tolist() == [t.data_ptr() for t in texts]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        kernel.fct_count_routed(texts, send, w, V, pointers)   # warm up
+        graph.capture_begin()
+        out = kernel.fct_count_routed(texts, send, w, V, pointers)
+        graph.capture_end()
+        with pytest.raises(RuntimeError, match="pointers resident"):
+            g2 = torch.cuda.CUDAGraph()
+            g2.capture_begin()
+            try:
+                kernel.fct_count_routed(texts, send, w, V)
+            finally:
+                g2.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    for _ in range(2):
+        w.copy_(torch.from_numpy(RNG.integers(0, 1 << 16, tuple(w.shape))
+                                 .astype(np.int32)).to(cuda_device))
+        graph.replay()
+        want = _routed_held_to_plain(texts, send, w, V, pointers)
+        assert torch.equal(out, want)
+
+
 @pytest.mark.parametrize("policy", ["int32", "int64"])
 def test_session_on_card_equals_oracle(cuda_device, policy):
     cfg = TpchConfig(scale=1.0, fact_rows=3000, part_rows=200, supp_rows=20,
@@ -558,9 +660,9 @@ def test_submit_from_threads_counts_exactly(cuda_device):
     kernel.LIB.reset_launches()
     ops.reset_path_counts()
     session.query(req)
-    per_query = ops.PATH_COUNTS["cuda_exact"]
+    per_query = ops.PATH_COUNTS["cuda_routed"]
     assert per_query > 0
-    assert kernel.LAUNCHES["fct_count_exact_int32"] == per_query
+    assert kernel.LAUNCHES["fct_count_routed_int32"] == per_query
     kernel.LIB.reset_launches()
     ops.reset_path_counts()
     results, errors = [], []
@@ -582,8 +684,8 @@ def test_submit_from_threads_counts_exactly(cuda_device):
     for r in results:
         np.testing.assert_array_equal(r.all_freqs, oracle)
     assert ops.PATH_COUNTS["ref"] == 0
-    assert ops.PATH_COUNTS["cuda_exact"] == 12 * per_query
-    assert kernel.LAUNCHES["fct_count_exact_int32"] == 12 * per_query
+    assert ops.PATH_COUNTS["cuda_routed"] == 12 * per_query
+    assert kernel.LAUNCHES["fct_count_routed_int32"] == 12 * per_query
 
 
 def test_gateway_burst_coalesces_on_card(cuda_device):
@@ -598,7 +700,7 @@ def test_gateway_burst_coalesces_on_card(cuda_device):
         first = [f.result(timeout=300) for f in [gw.submit("t", r)
                                                  for r in reqs]]
         assert sum(r.coalesced for r in first) >= 2
-        assert ops.PATH_COUNTS["cuda_exact"] > 0 and \
+        assert ops.PATH_COUNTS["cuda_routed"] > 0 and \
             ops.PATH_COUNTS["ref"] == 0
         batches = reg.session("t").engine.batches_run
         second = [gw.query("t", r) for r in reqs]
@@ -637,8 +739,8 @@ def test_storeless_calls_on_card(cuda_device, P, rs):
     plans = _joined_plans(schema, kws, P)
     cpu = make_worker_mesh(P, "cpu")
     mesh = make_worker_mesh(P, cuda_device)
-    for accum, name in ((INT32_CHECKED, "fct_count_exact_int32"),
-                        (INT64_EXACT, "fct_count_exact_int64")):
+    for accum, name in ((INT32_CHECKED, "fct_count_routed_int32"),
+                        (INT64_EXACT, "fct_count_routed_int64")):
         want = sum(run_cn_plan(p, cpu, accum=accum) for p in plans)
         eng = fct_engine.FCTEngine(reduce_scatter=rs,
                                    metrics=MetricsRegistry())
@@ -932,8 +1034,8 @@ def test_contracts_on_card(cuda_device):
     ops.reset_path_counts()
     failures, checked = check_all_contracts(device=cuda_device)
     assert failures == [] and checked == 24
-    assert kernel.LAUNCHES["fct_count_exact_int32"] > 0
-    assert kernel.LAUNCHES["fct_count_exact_int64"] > 0
+    assert kernel.LAUNCHES["fct_count_routed_int32"] > 0
+    assert kernel.LAUNCHES["fct_count_routed_int64"] > 0
     assert ops.PATH_COUNTS["ref"] == 0
 
 

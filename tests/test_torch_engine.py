@@ -250,3 +250,41 @@ def test_storeless_device_topk_matches_store_path(P):
     for ids, counts in out[1:]:
         np.testing.assert_array_equal(ids, out[0][0])
         np.testing.assert_array_equal(counts, out[0][1])
+
+
+@pytest.mark.parametrize("individual", [False, True])
+@pytest.mark.parametrize("P", [1, 8])
+def test_mr2_by_reference_counts_one_per_relation_per_group(P, individual):
+    """``stats()["mr2_by_reference"]``: each dispatched store-path group's
+    MR² reads every relation's tokens through its send table, one launch a
+    relation, counted from the groups' shapes (the fact and each included
+    dimension of the signature)."""
+    sj, kws = _dataset("mix")
+    _, plans, _ = plan_pairs(sj, kws, 3, P=P)
+    mesh = make_worker_mesh(P, "cpu")
+    eng = _engine()
+    want = sum(1 + len(sig.dims) for sig, _ in eng._group(plans))
+    store = RelationStore(mesh)
+    for run in range(1, 3):
+        if individual:
+            eng.run_plans_individual(plans, mesh, store=store)
+        else:
+            eng.run_plans(plans, mesh, store=store)
+        st = eng.stats()
+        assert st["mr2_by_reference"] == run * want > 0
+        assert st["batches_run"] == run * len(eng._group(plans))
+
+
+@pytest.mark.parametrize("policy", list(POLICIES), indirect=True)
+@pytest.mark.parametrize("P", [1, 8])
+def test_two_jobs_bit_equal_to_fused_for_every_cn(P, policy):
+    """The two-job path gathers the routed text for its artifact, the fused
+    path reads it by reference: the same histogram, CN for CN."""
+    sj, kws = _dataset("star")
+    _, plans, _ = plan_pairs(sj, kws, 3, P=P)
+    mesh = make_worker_mesh(P, "cpu")
+    cache = ExecutableCache()
+    for plan in plans:
+        np.testing.assert_array_equal(
+            run_cn_plan_two_jobs(plan, mesh, cache=cache, accum=policy),
+            run_cn_plan(plan, mesh, accum=policy))

@@ -15,8 +15,8 @@ from repro.data.schema import JoinEdge, Relation, StarSchema
 from repro.launch.mesh import make_worker_mesh as jax_worker_mesh
 from repro_torch.core import candidate_network as pt_cn
 from repro_torch.core.accum import INT32_CHECKED, INT64_EXACT
-from repro_torch.core.fct import (_clamp_index, _route, _scatter_add_drop,
-                                  run_cn_plan)
+from repro_torch.core.fct import (_clamp_index, _route, _routed_text,
+                                  _scatter_add_drop, run_cn_plan)
 from repro_torch.core.plan import build_cn_plan
 from repro_torch.data.schema import schema_from_reference, tokens_histogram
 from repro_torch.launch.mesh import make_worker_mesh
@@ -125,16 +125,20 @@ def test_index_helpers_follow_jax_semantics():
 
 
 def test_route_is_gather_then_all_to_all_with_masked_slots():
+    """Routing moves keys and masks; the text the reference routes beside
+    them is the two-job path's explicit gather (``_routed_text``), and the
+    fused MR² reads the same rows by reference."""
     rng = np.random.default_rng(3)
     P, S, L, C, m = 3, 5, 4, 4, 2
     text = rng.integers(1, 50, (P, S, L)).astype(np.int32)
     keys = rng.integers(0, 9, (P, S, m + 1)).astype(np.int32)
     send = rng.integers(-1, S, (P, P, C)).astype(np.int32)   # -1 = empty slot
     cols = np.array([[2, 0]], np.int32)
-    rtext, rkeys, mask = _route([torch.from_numpy(text)],
-                                [torch.from_numpy(keys)],
-                                torch.from_numpy(send)[None],
-                                torch.from_numpy(cols))
+    rkeys, mask = _route([torch.from_numpy(keys)],
+                         torch.from_numpy(send)[None],
+                         torch.from_numpy(cols))
+    rtext = _routed_text([torch.from_numpy(text)],
+                         torch.from_numpy(send)[None])
     assert rtext.shape == (1, P, P * C, L) and rkeys.shape == (1, P, P * C, m)
     for dst in range(P):
         for src in range(P):

@@ -141,7 +141,8 @@ def test_dispatch_goes_by_device():
     w = torch.ones((8,), dtype=torch.int32)
     ops.reset_path_counts()
     weighted_histogram(toks, w, 64)
-    assert ops.PATH_COUNTS == {"ref": 1, "cuda_exact": 0, "cuda_float": 0}
+    assert ops.PATH_COUNTS == {"ref": 1, "cuda_exact": 0, "cuda_float": 0,
+                               "cuda_routed": 0}
     with pytest.raises(ValueError, match="CUDA tensors"):
         weighted_histogram(toks, w, 64, backend="cuda")
     with pytest.raises(ValueError, match="unknown fct_count backend"):
@@ -174,3 +175,78 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     lib = _build.Library("fct_count", src, kernel.SYMBOLS)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         lib.load()
+
+
+# --- MR² by reference: the routed op (CPU: its plain version) ---------------
+
+def _routed_case(P, S, L, C, N, V, wdtype, shared, rng):
+    """N CNs' ``[P, S, L]`` texts (one tensor for all, or one each; PAD
+    and ids past the vocab among the tokens), send tables with -1 pads and indices past ``S`` (clamped), and weights with
+    zero runs; integer weights reach past 2^31 (int32 wraps) and into the
+    high bits (int64)."""
+    text = [torch.from_numpy(rng.integers(0, V + 2, (P, S, L))
+                             .astype(np.int32))
+            for _ in range(1 if shared else N)]
+    texts = text * N if shared else text
+    send = rng.integers(-1, S + 3, (N, P, P, C)).astype(np.int32)
+    hi = {np.int32: 1 << 30, np.int64: 1 << 62}[wdtype]
+    w = rng.integers(0, hi, (N, P, P * C)).astype(wdtype)
+    w[:, :, : P * C // 2] = 0                     # a zero run
+    w[rng.random(w.shape) < 0.3] = 0
+    return texts, torch.from_numpy(send), torch.from_numpy(w)
+
+
+def _materialized(texts, send, weights, vocab):
+    """Routed tokens built slot by slot in numpy (source row ``clamp(send,
+    0, S-1)`` of source ``src``, delivered to ``dst``), then the plain
+    histogram of the port, held to the JAX package's reference (int32) or
+    to numpy's modulo-2^64 sum (int64)."""
+    N, P, _, C = send.shape
+    S, L = texts[0].shape[1:]
+    s = send.numpy()
+    toks = np.zeros((N, P, P * C, L), np.int32)
+    for n in range(N):
+        t = texts[n].numpy()
+        for dst in range(P):
+            for src in range(P):
+                for c in range(C):
+                    row = min(max(int(s[n, src, dst, c]), 0), S - 1)
+                    toks[n, dst, src * C + c] = t[src, row]
+    flat = toks.reshape(N, P * P * C, L)
+    w = weights.numpy().reshape(N, P * P * C)
+    want = weighted_histogram(torch.from_numpy(flat), torch.from_numpy(w),
+                              vocab).numpy()
+    for n in range(N):
+        np.testing.assert_array_equal(
+            want[n], _jax(flat[n], w[n], vocab, interpret=False)
+            if w.dtype == np.int32 else _np_uint64(flat[n], w[n], vocab))
+    return want
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("wdtype", [np.int32, np.int64])
+@pytest.mark.parametrize("P", [1, 3, 8])
+def test_routed_plain_equals_materialize_then_histogram(P, wdtype, shared):
+    rng = np.random.default_rng(P)
+    V = 97
+    texts, send, w = _routed_case(P, 7, 5, 4, 3, V, wdtype, shared, rng)
+    ops.reset_path_counts()
+    got = ops.routed_histogram(texts, send, w, V)
+    assert ops.PATH_COUNTS["ref"] == 1 and ops.PATH_COUNTS["cuda_routed"] == 0
+    assert got.dtype == w.dtype and got.shape == (3, V)
+    np.testing.assert_array_equal(got.numpy(),
+                                  _materialized(texts, send, w, V))
+
+
+def test_routed_dispatch_and_checks():
+    rng = np.random.default_rng(1)
+    texts, send, w = _routed_case(2, 5, 4, 2, 2, 33, np.int32, True, rng)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.routed_histogram(texts, send, w, 33, backend="cuda")
+    with pytest.raises(ValueError, match="unknown fct_count backend"):
+        ops.routed_histogram(texts, send, w, 33, backend="pallas")
+    # the routed kernel has integer instantiations only
+    assert set(kernel.ROUTED) == {torch.int32, torch.int64}
+    names = {name for _, name in kernel.ROUTED.values()}
+    assert all("fct_count" in n for n in names)
+    assert names <= set(kernel.LAUNCHES)

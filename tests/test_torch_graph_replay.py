@@ -18,7 +18,10 @@ engine's decisions and bookkeeping:
   ``graph_eager`` / ``graph_captures`` / ``graph_replays`` read as stated,
   and ``engine.graph_replay_share.warm`` reads them;
 * a capture's own ``LAUNCHES``, ``PATH_COUNTS`` and collective tallies are
-  held back, and each replay adds what one run of the body adds.
+  held back, and each replay adds what one run of the body adds;
+* a warm store query replays every group, ships 0 bytes, reads MR²'s
+  tokens by reference (``mr2_by_reference``) and its route stage hands on
+  routed keys and masks only, no routed text.
 
 On the card (``cuda``-marked; they skip here) the real graphs: replayed
 answers are bit-identical to eager ones and to the oracle on uniform P 1 and
@@ -26,7 +29,9 @@ skewed P 8 adaptive plans, through ``query_batch``'s per-CN family, device
 top-k, 8 pipelined ``submit``s alternating two keyword sets from a cold
 session, and an ``append`` followed by the same query; launch counts equal
 the eager path's; ``dispatch_plans`` hands back each group already copied
-into pinned host memory.  This module imports no JAX, so it runs on the
+into pinned host memory; the route stage's allocations stay within a few
+times its routed keys and masks, below what a routed text copy would
+take.  This module imports no JAX, so it runs on the
 card.
 """
 import collections
@@ -251,18 +256,65 @@ def test_cpu_mesh_never_captures(family, P):
     session.close()
 
 
-def _plain_kernel(tokens, weights, vocab):
-    """The kernel's stand-in: the plain histogram, counted as a launch."""
-    _, name = kernel.INSTANTIATIONS[weights.dtype]
+def _route_stage_footprints(session, req):
+    """Per signature group of ``req``'s plans on the session's store: the
+    route stage's outputs (run once, eagerly), the bytes of the routed keys
+    and masks they should be, and the bytes a routed copy of the text
+    would take."""
+    from repro_torch.runtime.engine import _build_stages
+    from repro_torch.runtime.store import store_group_args
+    plans = session._plan(req).plans
+    out = []
+    for sig, idxs in session.engine._group(plans):
+        group = [plans[i] for i in idxs]
+        args = store_group_args(session.store, group, sig, len(group))
+        route = _build_stages(sig, True, False)[0]
+        slots = [len(group) * sig.n_devices ** 2 * r.cap
+                 for r in (sig.fact, *sig.dims)]
+        keys_mask = sum(n * (4 * w + 1) for n, w in zip(
+            slots, [sig.m] + [1] * len(sig.dims)))
+        text = sum(n * r.text_len * 4
+                   for n, r in zip(slots, (sig.fact, *sig.dims)))
+        out.append((args, route, keys_mask, text))
+    return out
+
+
+@pytest.mark.parametrize("P", [1, 8])
+def test_warm_query_replays_and_routes_keys_and_masks_only(P):
+    schema = _schema()
+    calls = []
+    session = FCTSession(schema, device="cpu", n_workers=P,
+                         engine=_engine(_stub_cache(calls)))
+    req = FCTRequest(keywords=KWS, top_k=5, r_max=4)
+    for _ in range(3):
+        resp = session.query(req)
+    st = resp.engine_stats
+    assert st["graph_replays"] == st["batches_run"] > 0
+    assert st["graph_eager"] == st["graph_captures"] == 0
+    assert st["bytes_shipped"] == 0
+    assert st["mr2_by_reference"] > st["batches_run"]
+    _check_answer(resp, schema, req)
+    for args, route, keys_mask, _ in _route_stage_footprints(session, req):
+        routed_fact, routed_dims = route(args.fact, args.dims)
+        outs = [t for rel in (routed_fact, *routed_dims) for t in rel]
+        assert len(outs) == 2 * (1 + len(routed_dims))
+        assert sum(t.numel() * t.element_size() for t in outs) == keys_mask
+    session.close()
+
+
+def _plain_routed_kernel(texts, send, weights, vocab, pointers=None):
+    """The routed kernel's stand-in: the plain routed histogram, counted as
+    a launch."""
+    _, name = kernel.ROUTED[weights.dtype]
     _build.bump(kernel.LIB.launches, name)
-    return ref.weighted_histogram(tokens, weights, vocab)
+    return ref.routed_weighted_histogram(texts, send, weights, vocab)
 
 
 @pytest.mark.parametrize("P", [1, 8])
 @pytest.mark.parametrize("individual", [False, True])
 def test_capture_holds_back_its_counts(monkeypatch, individual, P):
-    monkeypatch.setattr(kernel, "fct_count", _plain_kernel)
-    monkeypatch.setattr(ops.weighted_histogram, "__defaults__", ("cuda",))
+    monkeypatch.setattr(kernel, "fct_count_routed", _plain_routed_kernel)
+    monkeypatch.setattr(ops.routed_histogram, "__defaults__", (None, "cuda"))
     schema = _schema()
     calls = []
     eng = _engine(_stub_cache(calls))
@@ -286,7 +338,7 @@ def test_capture_holds_back_its_counts(monkeypatch, individual, P):
     assert st["graph_captures"] > 0 and calls
     assert st["graph_replays"] == 2 * st["graph_captures"]
     eager = per_run[0]
-    assert sum(eager[0].values()) > 0 and eager[1]["cuda_exact"] > 0
+    assert sum(eager[0].values()) > 0 and eager[1]["cuda_routed"] > 0
     assert eager[2]["all_to_all"] > 0
     # capture, then two replays: each counts one run of the body
     assert per_run[1:] == [eager] * 3
@@ -303,7 +355,7 @@ def test_graph_cache_matches_live_objects_only():
     mode, entry = cache.decide(key, dev, (a, b))
     assert mode == CAPTURE
     cache.capture_group(entry, _stage_steps(
-        (lambda f, d: f, lambda r: r, lambda r, v: r + v), a, []), dev)
+        (lambda f, d: f, lambda r: r, lambda f, d, v: f + v), a, []), dev)
     assert cache.decide(key, dev, (a, b))[0] == REPLAY
     # another object in a slot, or another key: eager
     c = b.clone()
@@ -494,4 +546,46 @@ def test_dispatch_copies_each_group_to_pinned_host_on_card(cuda_device,
                                              r_max=4)).host_freq
         np.testing.assert_array_equal(got, want)
     assert eng.stats()["graph_replays"] > 0
+    session.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 8])
+def test_warm_query_on_card_routes_no_text(cuda_device, P):
+    """On the card: a warm query replays every group, ships nothing, and
+    launches the routed kernel; over an eager run of the route stage of
+    the group with the most text, the allocator's peak stays within 8
+    times its routed keys and masks (plus the allocator's 512-byte
+    rounding of some 64 blocks) and below the routed text copy it no
+    longer makes."""
+    schema = plant_keywords(generate(TpchConfig(
+        scale=1.0, fact_rows=3000, part_rows=60, supp_rows=12,
+        order_rows=150, text_len=32, vocab_size=256, seed=3)), {
+        "PART": [KWS[0]], "SUPPLIER": [KWS[1]], "ORDERS": [KWS[2]],
+        "LINEITEM": [KWS[0], KWS[2]]}, frac=0.3)
+    session = FCTSession(schema, device=cuda_device, n_workers=P,
+                         engine=_engine())
+    req = FCTRequest(keywords=KWS, top_k=10, r_max=4)
+    for _ in range(2):
+        session.query(req)
+    kernel.LIB.reset_launches()
+    ops.reset_path_counts()
+    resp = session.query(req)
+    st = resp.engine_stats
+    assert st["graph_replays"] == st["batches_run"] > 0
+    assert st["bytes_shipped"] == 0 and st["mr2_by_reference"] > 0
+    assert ops.PATH_COUNTS["cuda_routed"] == st["mr2_by_reference"]
+    assert ops.PATH_COUNTS["ref"] == 0
+    _check_answer(resp, schema, req)
+    args, route, keys_mask, text = max(
+        _route_stage_footprints(session, req), key=lambda g: g[3])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    routed = route(args.fact, args.dims)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del routed
+    assert peak <= 8 * keys_mask + 64 * 512, (peak, keys_mask)
+    assert peak < text, (peak, text)
     session.close()

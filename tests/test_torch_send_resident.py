@@ -14,10 +14,16 @@ on the CPU:
   ``dispatch_topk`` gives a storeless call's top-k;
 * after ``FCTSession.append`` and after ``invalidate()`` the re-planned
   routes upload their tables anew, no table of the dropped plans is reused,
-  and the answers equal the reference's ``fct_star``.
+  and the answers equal the reference's ``fct_star``;
+* the store's text address tables (``RelationStore.text_pointers``, which
+  the routed MR² kernel reads on CUDA) are made once per group of live
+  text tensors, found again at 0 bytes, and dropped with their texts.
 """
+import gc
+
 import numpy as np
 import pytest
+import torch
 
 from repro.core.star import fct_star
 from repro.runtime.engine import FCTEngine as JaxEngine
@@ -194,3 +200,28 @@ def test_replanned_routes_upload_anew(mutation, P):
     assert again.engine_stats["bytes_shipped"] == 0
     np.testing.assert_array_equal(again.all_freqs, freq)
     session.close()
+
+
+def test_text_pointer_tables_follow_their_texts():
+    mesh = make_worker_mesh(2, "cpu")
+    store = RelationStore(mesh)
+    a, b = (torch.zeros((2, 4, 3), dtype=torch.int32) for _ in range(2))
+    table, nbytes = store.text_pointers([a, b, a])
+    assert table.dtype == torch.int64 and nbytes == 3 * 8
+    assert table.tolist() == [a.data_ptr(), b.data_ptr(), a.data_ptr()]
+    # the same live tensors: the same table, nothing shipped
+    again, nbytes = store.text_pointers([a, b, a])
+    assert again is table and nbytes == 0
+    # another composition: a table of its own
+    other, nbytes = store.text_pointers([b, a])
+    assert other is not table and nbytes == 2 * 8
+    assert len(store._pointers) == 2
+    # a text dies: every table that held it goes
+    del b
+    gc.collect()
+    assert len(store._pointers) == 0
+    fresh, nbytes = store.text_pointers([a])
+    assert nbytes == 8 and store.text_pointers([a])[0] is fresh
+    store.clear()
+    assert len(store._pointers) == 0
+    assert store.text_pointers([a])[1] == 8

@@ -13,7 +13,7 @@ and append paths (``repro_torch.obs`` fed by ``runtime/engine.py``,
   ``session.delta_freq`` and ``gateway.patch``, and the gateway's three
   append counters equal the sums of those spans exactly;
 * ``engine.fct_count_tokens`` equals the token slots every path hands to
-  ``weighted_histogram``;
+  MR²'s ``routed_histogram``;
 * under a CPU ``torch.profiler``, every ``span()`` has a profiler range of
   its name starting where the span starts, once the two clocks are tied by
   one mark, as ``bench/devtrace.py`` ties them;
@@ -229,15 +229,17 @@ def test_gateway_counters_equal_their_spans():
 
 @pytest.fixture
 def counted_histograms(monkeypatch):
-    """Token slots of every ``weighted_histogram`` call of the body."""
+    """Token slots of every MR² histogram call of the body: since MR²
+    reads by reference, each ``routed_histogram`` call's routed slots
+    times its texts' ``text_len``."""
     seen = []
-    orig = core_fct.weighted_histogram
+    orig = core_fct.routed_histogram
 
-    def counting(tokens, weights, vocab, *a, **k):
-        seen.append(tokens.numel())
-        return orig(tokens, weights, vocab, *a, **k)
+    def counting(texts, send, weights, vocab, *a, **k):
+        seen.append(weights.numel() * texts[0].shape[-1])
+        return orig(texts, send, weights, vocab, *a, **k)
 
-    monkeypatch.setattr(core_fct, "weighted_histogram", counting)
+    monkeypatch.setattr(core_fct, "routed_histogram", counting)
     return seen
 
 
