@@ -116,12 +116,15 @@ def _delta_tuple_sets(ts: TupleSets, role: str, dim_index: int,
 def _traced_cn_plan(schema: StarSchema, ts: TupleSets, cn: StarCN,
                     n_devices: int, **knobs) -> Optional[CNPlan]:
     """``build_cn_plan`` inside a ``plan.cn_plan`` span.  Args: ``n_rel``,
-    ``fact_rows``, ``shuffle_rows``, and the shuffle's shape: ``rho``,
-    ``tasks``, ``row_imbalance`` (achieved max/mean fact rows a worker),
-    ``dim_rows`` (the dimensions' tuple-set rows) and ``dim_sent`` (the
-    dimension rows sent, replicas included).  A single-relation CN has no
-    plan and records only ``n_rel`` and 0 rows."""
-    with obs_span("plan.cn_plan", n_rel=cn.n_relations()) as sp:
+    ``fact_mask`` (the CN's fact keyword mask: 0 is the free fact, -1 a
+    dimension alone), ``fact_rows``, ``shuffle_rows``, and the shuffle's
+    shape: ``rho``, ``tasks``, ``row_imbalance`` (achieved max/mean fact
+    rows a worker), ``dim_rows`` (the dimensions' tuple-set rows) and
+    ``dim_sent`` (the dimension rows sent, replicas included).  A
+    single-relation CN has no plan and records only ``n_rel``,
+    ``fact_mask`` and 0 rows."""
+    with obs_span("plan.cn_plan", n_rel=cn.n_relations(),
+                  fact_mask=cn.fact_mask) as sp:
         plan = build_cn_plan(schema, ts, cn, n_devices, **knobs)
         if plan is None:
             sp.args.update(fact_rows=0, shuffle_rows=0)

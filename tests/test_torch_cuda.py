@@ -248,6 +248,21 @@ def test_routed_kernel_equals_gather_then_plain(cuda_device, P, C, L,
                                             wdtype, hi, shared), V)
 
 
+@pytest.mark.parametrize("wdtype,hi", [(np.int32, 1 << 20),
+                                       (np.int64, 1 << 62)])
+@pytest.mark.parametrize("L", [24, 32])
+def test_routed_kernel_at_wide_texts(cuda_device, L, wdtype, hi):
+    """Texts 24 and 32 tokens wide (the chain's pre-joined ORDERS as
+    stored and bucketed), most slots weighing 0 as a free fact's do: bit
+    for bit the gather and the plain kernel, at P 1 and P 8."""
+    S, N, V = 4000, 2, 32768
+    for P, C in ((1, 16384), (8, 1024)):
+        texts, send, w = _routed_case(cuda_device, P, S, L, C, N, V, wdtype,
+                                      hi, False)
+        w[torch.rand(w.shape, device=cuda_device) < 0.97] = 0
+        _routed_held_to_plain(texts, send, w, V)
+
+
 def test_routed_kernel_wraps_int32_and_carries_int64(cuda_device):
     """int32 bins past 2^31 wrap as the plain kernel's do; int64 weights
     with bits 62 and 63 set wrap modulo 2^64; all-zero weights count

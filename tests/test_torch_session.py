@@ -44,6 +44,7 @@ def _reference_plan_stats(sj, kws, r_max, P, mode):
 CASES = {
     "system": (lambda: small_schema(), 4),
     "star": (lambda: _dataset("star"), 3),
+    "chain": (lambda: _dataset("chain"), 3),
     "mix": (lambda: _dataset("mix"), 3),
 }
 

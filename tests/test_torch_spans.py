@@ -164,6 +164,24 @@ def test_cold_plan_has_planner_children_and_a_hit_none():
     session.close()
 
 
+def test_cold_cn_plans_carry_their_fact_mask():
+    """Each cold ``plan.cn_plan`` names its CN's fact keyword mask (0 the
+    free fact, -1 a dimension alone), in the order the CNs are planned."""
+    from repro_torch.core.candidate_network import (TupleSets,
+                                                    enumerate_star_cns,
+                                                    prune_empty_cns)
+    session = _session()
+    cold = session.query(_req())
+    ts = TupleSets.build(session.schema, KWS)
+    cns = prune_empty_cns(enumerate_star_cns(len(KWS), session.schema.m, 3),
+                          ts)
+    spans = [s for s in cold.trace.spans() if s.name == "plan.cn_plan"]
+    assert [s.args["fact_mask"] for s in spans] == \
+        [cn.fact_mask for cn in cns]
+    assert 0 in {cn.fact_mask for cn in cns}        # the free fact
+    session.close()
+
+
 def _gateway(metrics):
     reg = SchemaRegistry(device="cpu")
     reg.register("t", schema_from_reference(make_schema(21)))
