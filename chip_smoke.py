@@ -8,10 +8,10 @@ Phases, one line each, then a kernels line and a last line with the device:
   1. card       ``nvidia-smi`` name and power limit.
   2. build      compile the hand-written CUDA kernels from the checkout's
                 sources (``nvcc``, one process per source, started
-                together): fct_count, flash_attention and lru_scan (each
-                LM source holds its backward kernel too).
+                together): fct_count, mr1_volumes, flash_attention and
+                lru_scan (each LM source holds its backward kernel too).
      build_report  ptxas's registers and spills of each kernel (fct_count,
-                flash_attention, lru_scan), and the HMMA (tensor-core)
+                mr1_volumes, flash_attention, lru_scan), and the HMMA (tensor-core)
                 instructions ``cuobjdump -sass`` finds in each: every bf16
                 flash instantiation, forward and backward (dK/dV and dQ),
                 must have some, the float32 ones none; no bf16 backward
@@ -44,7 +44,9 @@ Phases, one line each, then a kernels line and a last line with the device:
                 column uploads), a 3-request ``query_batch`` and an int64
                 query, every answer bit-equal to the numpy ``fct_star`` +
                 ``topk_terms`` oracle, with every kernel's launch count
-                reset just before and read just after.  ``--scale`` cuts the
+                reset just before and read just after: the routed fct_count
+                and the three MR¹ kernels launched at both widths, and no
+                plain version ran.  ``--scale`` cuts the
                 row counts only.
   5. profile    one more warm query under ``torch.profiler``: device time by
                 kernel, fct_count's share, the device's idle share (the
@@ -63,7 +65,12 @@ Phases, one line each, then a kernels line and a last line with the device:
                 ``index_select`` of the routed text + the plain-layout
                 kernel, both timed (``ms``, ``plain_ms``), and its byte
                 bound (weights, the send entry and tokens of each non-zero
-                row, the output).
+                row, the output).  The MR¹ kernels (``mr1_volumes_int32`` /
+                ``_int64``: num-arrays, probe, dimension volumes) at the
+                main path's largest MR¹ call per width (the triple's largest
+                group) as it was made: bit-equal to the plain version, both
+                timed, beside the byte bound (masks, the keys of valid
+                slots, the volumes).
   7. serve      the serving path on phase 4's deployment: a ``Gateway`` over a
                 ``SchemaRegistry`` of two tenants (``tpch``: phase 4's schema
                 as is, int32 policy; ``demo``: ``repro_torch.data.demo``),
@@ -90,8 +97,8 @@ Phases, one line each, then a kernels line and a last line with the device:
                 post-append query, the re-query, the device top-k queries,
                 the launcher smoke) runs with every count set to 0 just
                 before it and read just after: the routed fct_count int32
-                launched in each but burst 2, which launched nothing, and no
-                plain-version call; each path's count goes into the kernels
+                and the MR¹ kernels launched in each but burst 2, which
+                launched nothing, and no plain-version call; each path's count goes into the kernels
                 line as ``<path>_launches``.
  7b. analysis   the port's invariant checks (``repro_torch.analysis``):
                 the AST lint (R1-R5) over ``src/repro_torch``, 0 violations,
@@ -330,6 +337,13 @@ ROUTED_KERNELS = {
     "fct_count_routed_int64": ("int64", "src/repro/kernels/fct_count/kernel.py:170"),
 }
 SOURCE = "src/repro_torch/kernels/fct_count/csrc/fct_count.cu"
+#: the MR¹ kernels a path at each width launches (num-arrays, probe,
+#: dimension volumes); they replace no TPU kernel
+MR1_KERNELS = {"int32": ("mr1_num", "mr1_probe_int32", "mr1_dimvol_int32"),
+               "int64": ("mr1_num", "mr1_probe_int64", "mr1_dimvol_int64")}
+MR1_SOURCE = "src/repro_torch/kernels/mr1_volumes/csrc/mr1_volumes.cu"
+MR1_REPLACES = ("none: no TPU kernel; MR¹ was jnp scatter-adds in the "
+                "reference (src/repro/core/fct.py:87)")
 
 
 class SmokeFailure(Exception):
@@ -362,9 +376,9 @@ _ARG_TYPES = {"f": "float32", "i": "int32", "l": "int64",
 def kernel_name(mangled: str) -> str:
     """``flash_attention_mma_kernel<256,256>`` from a mangled symbol
     (``flash_bwd_reduce_kernel`` from one that is no template)."""
-    m = re.search(r"\d+([a-z_]+kernel)I(.*?)EEv", mangled)
+    m = re.search(r"\d+((?:mr1)?[a-z_]+kernel)I(.*?)EEv", mangled)
     if m is None:
-        m = re.search(r"\d+([a-z_]+kernel)E", mangled)
+        m = re.search(r"\d+((?:mr1)?[a-z_]+kernel)E", mangled)
         return m.group(1) if m else mangled
     dims = re.findall(r"Li(\d+)E", m.group(2))
     dtype = m.group(2).split("Li")[0]
@@ -561,6 +575,26 @@ class Recorder:
         return self.fn(texts, send, weights, vocab, pointers)
 
 
+class Mr1Recorder:
+    """Wraps the MR¹ kernels' entry point during the main path to keep, per
+    accumulator dtype, the inputs of its largest call (the routed fact and
+    dimensions and their key domains, for phase 6's timing).  Launch
+    counting stays in the wrapped function."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.largest = {}
+
+    def __call__(self, routed_fact, routed_dims, domains, dtype):
+        slots = routed_fact[1].numel() + sum(m.numel()
+                                             for _, m in routed_dims)
+        best = self.largest.get(dtype)
+        if best is None or slots > best[0]:
+            self.largest[dtype] = (slots, (routed_fact, list(routed_dims),
+                                           tuple(domains), dtype))
+        return self.fn(routed_fact, routed_dims, domains, dtype)
+
+
 def materialized(texts, send, weights, vocab):
     """A routed call's inputs in the plain layout: the routed text gathered
     (``index_select``, as the two-job path gathers it) as ``[N, R, L]`` and
@@ -597,6 +631,7 @@ def run_main_path(torch, np, args, dev):
     from repro_torch.api import FCTRequest, FCTSession, SessionConfig
     from repro_torch.core.star import fct_star
     from repro_torch.kernels.fct_count import kernel, ops
+    from repro_torch.kernels.mr1_volumes import kernel as mr1_kernel
 
     t0 = time.perf_counter()
     schema, kws = build_schema(np, args)
@@ -616,6 +651,8 @@ def run_main_path(torch, np, args, dev):
 
     recorder = Recorder(kernel.fct_count_routed)
     kernel.fct_count_routed = recorder
+    mr1_recorder = Mr1Recorder(mr1_kernel.mr1_volumes)
+    mr1_kernel.mr1_volumes = mr1_recorder
     torch.cuda.reset_peak_memory_stats(dev)
     reset_all_counts()
     try:
@@ -629,8 +666,8 @@ def run_main_path(torch, np, args, dev):
         torch.cuda.synchronize(dev)
     finally:
         kernel.fct_count_routed = recorder.fn
-    launches = dict(kernel.LAUNCHES)
-    paths = dict(ops.PATH_COUNTS)
+        mr1_kernel.mr1_volumes = mr1_recorder.fn
+    launches, paths = read_counts()
 
     for label, r in resps:
         check_answer(np, r, oracles[full.keywords], kws, 10, label)
@@ -661,12 +698,17 @@ def run_main_path(torch, np, args, dev):
           f"{t['dispatch_ms']} collect_ms {t['collect_ms']}", flush=True)
     check(launches["fct_count_routed_int32"] > 0, "int32 kernel never ran")
     check(launches["fct_count_routed_int64"] > 0, "int64 kernel never ran")
-    check(paths["ref"] == 0, f"plain version ran on the main path: {paths}")
+    for name in {*MR1_KERNELS["int32"], *MR1_KERNELS["int64"]}:
+        check(launches[name] > 0, f"MR¹ kernel {name} never ran")
+    check(all(p["ref"] == 0 for p in paths.values()),
+          f"plain version ran on the main path: {paths}")
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"[main] launches {launches} paths {paths} device_peak_bytes "
           f"{peak} store_bytes {session.store.resident_bytes} + "
           f"{session64.store.resident_bytes}", flush=True)
-    return launches, recorder.largest, session, full, schema, oracles
+    mr1_largest = {k: v[1] for k, v in mr1_recorder.largest.items()}
+    return (launches, recorder.largest, mr1_largest, session, full, schema,
+            oracles)
 
 
 # --- phase 5: where one warm query's device time goes -------------------------
@@ -849,6 +891,48 @@ def time_routed(torch, ops, kernel, texts, send, weights, vocab):
             "bytes": nbytes, "materialized_bytes": N * R * (8 + 2 * L * 4),
             "zero_weight_share": 1 - nonzero / (N * R),
             "shape": [N, R, L, vocab], "P": P, "cap": C}
+
+
+def time_mr1(torch, ops, kernel, fact, dims, domains, dtype):
+    """The MR¹ kernels on one main-path call's inputs, held bit for bit to
+    the plain version, then both timed (``ms``, ``plain_ms``).  The bound
+    counts what the call needs: each slot's mask and volume, and the keys
+    of its valid slots (m a fact slot, one a dimension slot), read once."""
+    fmask = fact[1]
+    N, P, R = fmask.shape
+    shape = [N, P, R, len(dims)]
+
+    def kernels():
+        return ops.mr1_volumes(fact, dims, domains, dtype)
+
+    def plain():
+        return ops.mr1_volumes(fact, dims, domains, dtype, backend="ref")
+
+    got, want = kernels(), plain()
+    torch.cuda.synchronize()
+    pairs = list(zip([got[0], *got[1]], [want[0], *want[1]]))
+    err = max((g.double() - w.double()).abs().max().item() if g.numel()
+              else 0.0 for g, w in pairs)
+    equal = all(torch.equal(g, w) for g, w in pairs)
+    check(equal, f"MR¹ at shape {shape}: kernels != plain version (max abs "
+                 f"diff {err})")
+    del got, want, pairs
+    ms = median_ms(torch, kernels)
+    plain_ms = median_ms(torch, plain)
+    torch.cuda.empty_cache()
+    slots = fmask.numel() + sum(mk.numel() for _, mk in dims)
+    valid = [int(fmask.sum()), sum(int(mk.sum()) for _, mk in dims)]
+    nbytes = (slots * (1 + dtype.itemsize) + valid[0] * 4 * len(dims)
+              + valid[1] * 4)
+    return {"ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "plain": "ref.mr1_volumes (aten scatter_add_ and gather)",
+            "library_ms": None, "equal": equal, "max_abs_err": err,
+            "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nbytes, "masked_share": 1 - sum(valid) / slots,
+            "shape": shape, "dim_rows": [mk.shape[2] for _, mk in dims],
+            "domains": list(domains),
+            "shared_planes": kernel.shared_planes(domains,
+                                                  dtype.itemsize)[0]}
 
 
 # --- phases 7-8: the serving path on phase 4's deployment ----------------------
@@ -1204,7 +1288,8 @@ def run_analysis(dev):
                                           for v in report.violations))
     (failures, checked), launches = counted(
         "analysis contracts", lambda: check_all_contracts(device=dev),
-        kernels=("fct_count_routed_int32", "fct_count_routed_int64"))
+        kernels=("fct_count_routed_int32", "fct_count_routed_int64",
+                 *MR1_KERNELS["int32"], *MR1_KERNELS["int64"]))
     check(not failures, f"contracts: {failures}")
     answers = []
     for script in ("quickstart_torch.py", "fct_query_expansion_torch.py"):
@@ -1355,7 +1440,7 @@ def run_engine_paths(torch, np, args, dev, session, full, oracle):
     (two, ms), launches["two_jobs"] = counted("two jobs", lambda: timed(
         torch, dev, lambda: run_cn_plan_two_jobs(plans[big], mesh,
                                                  cache=cache)),
-        kernels=("fct_count_exact_int32",))
+        kernels=("fct_count_exact_int32", *MR1_KERNELS["int32"]))
     check(np.array_equal(two, per_cn[big]),
           "two-job path differs from the CN's run_plans_individual row")
     trace = Trace()
@@ -1380,7 +1465,7 @@ def run_engine_paths(torch, np, args, dev, session, full, oracle):
     (t64, ms), launches["batched_int64"] = counted(
         "storeless int64", lambda: timed(torch, dev, lambda: eng64.run_plans(
             plans, mesh, accum=INT64_EXACT)),
-        kernels=("fct_count_routed_int64",))
+        kernels=("fct_count_routed_int64", *MR1_KERNELS["int64"]))
     check(np.array_equal(with_map_only(t64), oracle),
           "storeless int64 run_plans differs from fct_star")
     print(f"[engine_paths] storeless int64 {ms:.3f} ms, store.upload_bytes "
@@ -1523,8 +1608,10 @@ def count_modules():
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.lru_scan import kernel as lru_kernel
     from repro_torch.kernels.lru_scan import ops as lru_ops
-    return ((fct_kernel.LIB, flash_kernel.LIB, lru_kernel.LIB),
-            (fct_ops, flash_ops, lru_ops))
+    from repro_torch.kernels.mr1_volumes import kernel as mr1_kernel
+    from repro_torch.kernels.mr1_volumes import ops as mr1_ops
+    return ((fct_kernel.LIB, mr1_kernel.LIB, flash_kernel.LIB,
+             lru_kernel.LIB), (fct_ops, mr1_ops, flash_ops, lru_ops))
 
 
 def reset_all_counts() -> None:
@@ -1544,7 +1631,8 @@ def read_counts():
     return launches, paths
 
 
-def counted(label, fn, kernels=("fct_count_routed_int32",)):
+def counted(label, fn,
+            kernels=("fct_count_routed_int32", *MR1_KERNELS["int32"])):
     """Runs one path with every count set to 0 just before it and read just
     after.  Fails unless each of ``kernels`` launched in that run and no op
     took its plain version; returns (fn's result, the run's launches by
@@ -3423,6 +3511,8 @@ def main() -> int:
     from repro_torch.kernels.fct_count import kernel, ops
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.lru_scan import kernel as lru_kernel
+    from repro_torch.kernels.mr1_volumes import kernel as mr1_kernel
+    from repro_torch.kernels.mr1_volumes import ops as mr1_ops
     dev = torch.device("cuda", 0)
     # float32 comparisons on the card run in full float32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3435,7 +3525,7 @@ def main() -> int:
                       f"{torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    libs = [kernel.LIB, flash_kernel.LIB, lru_kernel.LIB]
+    libs = [kernel.LIB, mr1_kernel.LIB, flash_kernel.LIB, lru_kernel.LIB]
     for lib in libs:    # build here, so ptxas reports every kernel
         lib.path.unlink(missing_ok=True)
     _build.build_all(libs)
@@ -3454,14 +3544,15 @@ def main() -> int:
                          f"of the plain version: {'; '.join(lm_lines)}")
 
     t0 = time.perf_counter()
-    (launches, largest, session, req, schema,
+    (launches, largest, mr1_largest, session, req, schema,
      oracles) = run_main_path(torch, np, args, dev)
     phase("main", t0, "every answer bit-equal to fct_star/topk_terms; "
                       "warm queries built 0 programs and uploaded 0 columns")
 
     t0 = time.perf_counter()
     phase("profile", t0, profile_device(
-        torch, lambda: session.query(req), {"fct_count": "fct_count"}))
+        torch, lambda: session.query(req), {"fct_count": "fct_count",
+                                            "mr1": "mr1_"}))
 
     t0 = time.perf_counter()
     report = []
@@ -3511,6 +3602,25 @@ def main() -> int:
               f"ms on the non-zero rows' bytes", flush=True)
     del largest
     torch.cuda.empty_cache()
+    for dtype_name, names in MR1_KERNELS.items():
+        name = f"mr1_volumes_{dtype_name}"
+        by_kernel = {k: launches[k] for k in names}
+        entry = {"name": name, "route": "cuda", "source": MR1_SOURCE,
+                 "replaces": MR1_REPLACES,
+                 "launches": sum(by_kernel.values()),
+                 "launches_by_kernel": by_kernel, "tolerance": 0}
+        entry.update(time_mr1(torch, mr1_ops, mr1_kernel,
+                              *mr1_largest[getattr(torch, dtype_name)]))
+        report.append(entry)
+        print(f"[fct_timing] {name} at {entry['shape']} (dimension slots "
+              f"{entry['dim_rows']}, domains {entry['domains']}, shared "
+              f"planes {entry['shared_planes']}): masked slots "
+              f"{entry['masked_share']:.4f}; kernels {entry['ms']:.4f} ms, "
+              f"plain version {entry['plain_ms']:.4f} ms; bound "
+              f"{entry['bound_ms']:.4f} ms on {entry['bytes']} bytes",
+              flush=True)
+    del mr1_largest
+    torch.cuda.empty_cache()
     phase("fct_timing", t0, "each fct_count instantiation bit-equal to its "
                             "plain version at the main path's largest call "
                             "per dtype (its routed text gathered), then the "
@@ -3518,7 +3628,9 @@ def main() -> int:
                             "warm-up calls, and the same on uniform tokens; "
                             "each routed instantiation bit-equal to "
                             "index_select + fct_count at that call, both "
-                            "timed")
+                            "timed; the MR¹ kernels bit-equal to their "
+                            "plain version at the main path's largest MR¹ "
+                            "call per width, both timed")
 
     t0 = time.perf_counter()
     path_launches, serve_smoke = run_serve(torch, np, args, dev, schema,

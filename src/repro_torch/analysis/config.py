@@ -44,7 +44,8 @@ TRACE_ENTRY_POINTS = (
 #: reduction (``psum`` / ``psum_scatter``) is explicitly cast in the same
 #: function — the AccumPolicy overflow contract must be local, not
 #: inherited by accident.
-ACCUM_MODULES = ("core/fct.py", "runtime/engine.py")
+ACCUM_MODULES = ("core/fct.py", "runtime/engine.py",
+                 "kernels/mr1_volumes/ref.py")
 
 # -- R3: lock discipline -----------------------------------------------------
 

@@ -9,8 +9,9 @@ rows, on the mesh's device), and observes the run: the families are
 ``fct_store`` / ``fct_store_percn`` (device-resident columns; their three
 stages run eagerly, in order, as the engine runs a group) and the
 ``fct_topk`` finalize family (device top-k over the aggregated histogram).
-On a CUDA mesh their histograms go through the ``fct_count`` kernel; on
-the CPU through its plain version.
+On a CUDA mesh their histograms go through the ``fct_count`` kernel and
+their MR¹ through the ``mr1_volumes`` kernels; on the CPU through their
+plain versions.
 
 C1 (collective census)
     Every movement across the virtual mesh's workers goes through a named

@@ -4,7 +4,8 @@
 MR¹ (statistics): route tuple-set rows' keys per the static plan (gather
 → all_to_all → mask), build dense ``num``-arrays per dimension and worker,
 probe them per fact row to produce fact volumes and per-dimension ``vol``
-contributions.
+contributions (on the card three hand-written kernels,
+``kernels/mr1_volumes``).
 
 MR² (term frequency): weighted token histogram of every routed payload with
 its volume, summed over workers — the "aggregation equal transformation" of
@@ -29,9 +30,10 @@ kernel's slot ``(n, dst, src*C + c)`` reads the very row the reference's
 buffer holds there, so the counts are the same.
 
 Index semantics follow the reference explicitly, since torch index ops raise
-where JAX's clamp or drop: gathers wrap a negative index once and then clamp
-(:func:`_clamp_index`); scatter-adds wrap once and drop what is still out of
-range (:func:`_scatter_add_drop`).  On the main path every index is in range.
+where JAX's clamp or drop: gathers wrap a negative index once and then clamp;
+scatter-adds wrap once and drop what is still out of range
+(``kernels/mr1_volumes/ref.py``, whose semantics the MR¹ kernels keep).  On
+the main path every index is in range.
 
 The engine (``runtime/engine.py``) runs a signature group's program as three
 stages: routing (:func:`_route_cn`), MR¹ (:func:`_mr1_volumes`) and MR²
@@ -66,31 +68,13 @@ from repro_torch.distributed.checkpoint import (restore_checkpoint,
                                                 save_checkpoint)
 from repro_torch.kernels.fct_count.ops import (routed_histogram,
                                                 weighted_histogram)
+from repro_torch.kernels.mr1_volumes.ops import mr1_volumes
+from repro_torch.kernels.mr1_volumes.ref import clamp_index as _clamp_index
 from repro_torch.launch.mesh import VirtualMesh, all_to_all, psum
 from repro_torch.obs import span as obs_span
 from repro_torch.runtime.batch import (PlanSignature, pad_plan_arrays,
                                        plan_signature)
 from repro_torch.runtime.cache import ExecutableCache, default_cache
-
-
-def _clamp_index(idx: torch.Tensor, size: int) -> torch.Tensor:
-    """Gather index under JAX semantics: negative counts from the end
-    (once), then out-of-range clamps to the edge."""
-    idx = torch.where(idx < 0, idx + size, idx)
-    return idx.clamp(0, size - 1)
-
-
-def _scatter_add_drop(target: torch.Tensor, dim: int, idx: torch.Tensor,
-                      src: torch.Tensor) -> None:
-    """In-place ``target.scatter_add_`` under ``.at[].add(mode="drop")``
-    semantics: negative counts from the end (once); indices still outside
-    ``[0, size)`` add nothing."""
-    size = target.shape[dim]
-    idx = torch.where(idx < 0, idx + size, idx)
-    ok = (idx >= 0) & (idx < size)
-    # fct-lint: waive[R2] -- every caller allocates target with an explicit dtype (num, contrib in _mr1_volumes)
-    target.scatter_add_(dim, torch.where(ok, idx, 0),
-                        torch.where(ok, src, torch.zeros_like(src)))
 
 
 def _route(keys: Sequence[torch.Tensor], send: torch.Tensor,
@@ -176,37 +160,9 @@ def _mr1_volumes(routed_fact, routed_dims, domains: Tuple[int, ...],
     reduce-side counting), then fact volume and per-dimension vol
     contributions (Algorithm 3 stage 2).  Returns (vol_fact, dim_vols), each
     ``[N, P, rows]`` in the policy dtype; products wrap as the reference's
-    do."""
-    acc = accum.dtype
-    fkeys, fmask = routed_fact
-    N, P = fmask.shape[:2]
-    dev = fmask.device
-    m = len(routed_dims)
-    nums = []
-    for (dkeys, dmask), dom in zip(routed_dims, domains):
-        num = torch.zeros((N, P, dom), dtype=torch.int32, device=dev)
-        _scatter_add_drop(num, 2, dkeys.long(), dmask.to(torch.int32))
-        nums.append(num)
-    fk = [fkeys[..., i].long() for i in range(m)]
-    probes = [nums[i].gather(2, _clamp_index(fk[i], domains[i])).to(acc)
-              for i in range(m)]
-    fvalid = fmask.to(acc)
-    vol_fact = fvalid
-    for pr in probes:
-        vol_fact = vol_fact * pr
-    dim_vols = []
-    for i in range(m):
-        others = fvalid
-        for j in range(m):
-            if j != i:
-                others = others * probes[j]
-        contrib = torch.zeros((N, P, domains[i]), dtype=acc, device=dev)
-        _scatter_add_drop(contrib, 2, fk[i], others)
-        dkeys, dmask = routed_dims[i]
-        dim_vols.append(
-            contrib.gather(2, _clamp_index(dkeys.long(), domains[i]))
-            * dmask.to(acc))
-    return vol_fact, dim_vols
+    do.  On CUDA tensors the hand-written kernels (``kernels/mr1_volumes``),
+    on the CPU their plain version."""
+    return mr1_volumes(routed_fact, routed_dims, domains, accum.dtype)
 
 
 def _mr2_histograms(fact: Dict, dims: Sequence[Dict], vol_fact, dim_vols,

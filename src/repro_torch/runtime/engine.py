@@ -90,6 +90,8 @@ import torch
 from repro_torch.core.accum import AccumPolicy
 from repro_torch.core.fct import _mr1_volumes, _mr2_histograms, _route_cn
 from repro_torch.core.plan import CNPlan
+from repro_torch.kernels import _build
+from repro_torch.kernels.mr1_volumes import ops as mr1_ops
 from repro_torch.launch.mesh import (VirtualMesh, all_gather, psum,
                                      psum_scatter, vocab_padded)
 from repro_torch.obs import default_registry, set_span_hook
@@ -390,7 +392,11 @@ class FCTEngine:
     launches (``N·P·P·cap`` of every relation, as bucketed) beside
     ``route_rows``, the rows the group's plans send (``shuffle_rows``);
     ``mr2_by_reference`` the MR² launches that read their tokens through
-    a send table, one a relation of every dispatched group.
+    a send table, one a relation of every dispatched group;
+    ``mr1_by_kernel`` the groups whose MR¹ stage went through the
+    hand-written kernels (``kernels/mr1_volumes``; 0 on the CPU), counted
+    from the stage's own path count, which a replay adds as its capture
+    held it.
     ``graph_eager``, ``graph_captures`` and ``graph_replays`` count the
     groups that ran eagerly, were captured as CUDA graphs (and
     replayed once), and were replayed (:attr:`graphs`, graphs.py).
@@ -421,6 +427,7 @@ class FCTEngine:
         self._c_route_slots = self.metrics.counter("engine.route_slots")
         self._c_route_rows = self.metrics.counter("engine.route_rows")
         self._c_mr2_by_ref = self.metrics.counter("engine.mr2_by_reference")
+        self._c_mr1_by_kernel = self.metrics.counter("engine.mr1_by_kernel")
         # store path: send tables uploaded at a plan's first dispatch, and
         # those later dispatches found on the device
         self._c_send_uploads = self.metrics.counter("engine.send_uploads")
@@ -519,18 +526,26 @@ class FCTEngine:
                  else None)
         steps = _stage_steps(program, args.fact, args.dims)
         rows = n_stack * sig.n_devices ** 2 * sig.fact.cap
-        # a capture and the replays (output copy included) hold the lock
-        with (self.graphs.lock if graph != EAGER
-              else contextlib.nullcontext()):
-            if graph == CAPTURE:
-                self.graphs.capture_group(entry, steps, mesh.device)
-            with obs_span("engine.upload", bytes=0):
-                _mark(marks)
-            for i, name in enumerate(STAGE_SPANS):
-                with obs_span(name, n_cns=n_stack, rows=rows):
-                    out = (next(steps) if graph == EAGER
-                           else entry.graphs.replay(i))
+        # the stages' bumps (an eager run's, or those the last replay adds)
+        # are held until the loop ends, so that this group's own bumps show
+        # whether its MR¹ took the kernels; a capture and the replays
+        # (output copy included) hold the lock
+        bumps: list = []
+        try:
+            with (self.graphs.lock if graph != EAGER
+                  else contextlib.nullcontext()), \
+                    _build.held_bumps() as bumps:
+                if graph == CAPTURE:
+                    self.graphs.capture_group(entry, steps, mesh.device)
+                with obs_span("engine.upload", bytes=0):
                     _mark(marks)
+                for i, name in enumerate(STAGE_SPANS):
+                    with obs_span(name, n_cns=n_stack, rows=rows):
+                        out = (next(steps) if graph == EAGER
+                               else entry.graphs.replay(i))
+                        _mark(marks)
+        finally:
+            _build.add_bumps(bumps)
         if marks is not None:
             stages.append(marks.events)
         self._c_batches.inc()
@@ -539,6 +554,9 @@ class FCTEngine:
         self._c_route_slots.inc(_route_slots(sig, n_stack))
         self._c_route_rows.inc(sum(p.shuffle_rows for p in group))
         self._c_mr2_by_ref.inc(1 + len(sig.dims))
+        self._c_mr1_by_kernel.inc(sum(
+            1 for counts, key in bumps
+            if counts is mr1_ops.PATH_COUNTS and key == "cuda"))
         return out
 
     @contextlib.contextmanager
@@ -804,17 +822,19 @@ class FCTEngine:
         out = self.cache.stats()
         (batches, cns, shipped, d2h, g_pruned, rows_pruned, tokens,
          send_uploads, send_hits, route_slots, route_rows, mr2_by_ref,
-         g_eager, g_captures, g_replays) = self.metrics.values(
+         mr1_by_kernel, g_eager, g_captures, g_replays) = self.metrics.values(
             self._c_batches, self._c_cns, self._c_bytes, self._c_d2h,
             self._c_groups_pruned, self._c_pruned_rows, self._c_fct_tokens,
             self._c_send_uploads, self._c_send_hits, self._c_route_slots,
-            self._c_route_rows, self._c_mr2_by_ref, *self._c_graph.values())
+            self._c_route_rows, self._c_mr2_by_ref, self._c_mr1_by_kernel,
+            *self._c_graph.values())
         out.update(batches_run=batches, cns_run=cns, bytes_shipped=shipped,
                    device_to_host_bytes=d2h,
                    groups_pruned=g_pruned, pruned_rows=rows_pruned,
                    fct_count_tokens=tokens, send_uploads=send_uploads,
                    send_hits=send_hits, route_slots=route_slots,
                    route_rows=route_rows, mr2_by_reference=mr2_by_ref,
+                   mr1_by_kernel=mr1_by_kernel,
                    graph_eager=g_eager, graph_captures=g_captures,
                    graph_replays=g_replays)
         return out

@@ -38,7 +38,7 @@ later replay of the same group cannot overwrite an answer not yet
 collected.
 
 **Counts.**  Capturing launches nothing, yet the stages' Python still bumps
-``fct_count``'s ``LAUNCHES`` and the ops' ``PATH_COUNTS`` and tallies their
+the kernels' ``LAUNCHES`` and the ops' ``PATH_COUNTS`` and tallies their
 collectives.  The capture holds those back (``kernels/_build.held_bumps``
 and a census of its own) and each replay adds them once
 (:meth:`GroupGraphs.replay`), so the counts stay counts of work run.

@@ -15,10 +15,10 @@ from repro.data.schema import JoinEdge, Relation, StarSchema
 from repro.launch.mesh import make_worker_mesh as jax_worker_mesh
 from repro_torch.core import candidate_network as pt_cn
 from repro_torch.core.accum import INT32_CHECKED, INT64_EXACT
-from repro_torch.core.fct import (_clamp_index, _route, _routed_text,
-                                  _scatter_add_drop, run_cn_plan)
+from repro_torch.core.fct import _route, _routed_text, run_cn_plan
 from repro_torch.core.plan import build_cn_plan
 from repro_torch.data.schema import schema_from_reference, tokens_histogram
+from repro_torch.kernels.mr1_volumes.ref import clamp_index, scatter_add_drop
 from repro_torch.launch.mesh import make_worker_mesh
 from test_engine import _dataset
 
@@ -115,12 +115,12 @@ def test_crafted_int32_overflow_wraps_to_reference_bits():
 def test_index_helpers_follow_jax_semantics():
     idx = np.array([-1, 7, 2, -9], np.int64)
     x = jnp.arange(5) * 10
-    got = (torch.arange(5) * 10)[_clamp_index(torch.from_numpy(idx), 5)]
+    got = (torch.arange(5) * 10)[clamp_index(torch.from_numpy(idx), 5)]
     np.testing.assert_array_equal(got.numpy(), np.asarray(x[idx]))
     want = np.asarray(jnp.zeros(5, jnp.int32).at[idx].add(3, mode="drop"))
     t = torch.zeros(5, dtype=torch.int32)
-    _scatter_add_drop(t, 0, torch.from_numpy(idx),
-                      torch.full((4,), 3, dtype=torch.int32))
+    scatter_add_drop(t, 0, torch.from_numpy(idx),
+                     torch.full((4,), 3, dtype=torch.int32))
     np.testing.assert_array_equal(t.numpy(), want)
 
 
