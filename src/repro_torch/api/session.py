@@ -78,7 +78,7 @@ _ENGINE_COUNTERS = ("hits", "misses", "traces", "evictions",
                     "device_to_host_bytes", "groups_pruned", "pruned_rows",
                     "fct_count_tokens", "send_uploads", "send_hits",
                     "route_slots", "route_rows", "mr2_by_reference",
-                    "mr1_by_kernel",
+                    "mr2_textless_skips", "mr1_by_kernel",
                     "graph_eager", "graph_captures", "graph_replays")
 
 

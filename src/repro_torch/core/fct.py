@@ -165,22 +165,30 @@ def _mr1_volumes(routed_fact, routed_dims, domains: Tuple[int, ...],
     return mr1_volumes(routed_fact, routed_dims, domains, accum.dtype)
 
 
+def _has_text(rel: Dict) -> bool:
+    """Whether a relation carries text for MR² to read, from its ``"text"``
+    (a CN batch's list of texts, or one flattened text): a relation of
+    width 0 (a fact with no character column, say) adds weight through MR¹
+    and no terms, and gets no MR² launch, no address table and no token
+    count."""
+    text = rel["text"]
+    return (text[0] if isinstance(text, list) else text).shape[-1] > 0
+
+
 def _mr2_histograms(fact: Dict, dims: Sequence[Dict], vol_fact, dim_vols,
                     vocab: int) -> torch.Tensor:
     """MR² by reference on a CN batch's relations and their routed volumes:
-    one weighted histogram launch per relation (:func:`routed_histogram`),
-    which reads each routed slot's tokens through the relation's send
-    tables, joined, from its texts (``"ptrs"``, where given, their resident
-    address table), the workers flattened into the row axis, summed ->
-    ``[N, vocab]``."""
-    def count(rel: Dict, weights: torch.Tensor) -> torch.Tensor:
-        return routed_histogram(rel["text"], _cn_joined(rel["send"]),
-                                weights, vocab, rel.get("ptrs"))
-
-    hist = count(fact, vol_fact)
-    for d, w in zip(dims, dim_vols):
-        hist = hist + count(d, w.to(hist.dtype))
-    return hist
+    one weighted histogram launch per relation that carries text
+    (:func:`routed_histogram`), which reads each routed slot's tokens
+    through the relation's send tables, joined, from its texts (``"ptrs"``,
+    where given, their resident address table), the workers flattened into
+    the row axis, summed -> ``[N, vocab]`` in the volumes' dtype.  A
+    relation of width 0 is not read."""
+    hists = [routed_histogram(rel["text"], _cn_joined(rel["send"]),
+                              w.to(vol_fact.dtype), vocab, rel.get("ptrs"))
+             for rel, w in zip((fact, *dims), (vol_fact, *dim_vols))
+             if _has_text(rel)]
+    return sum(hists[1:], hists[0])
 
 
 def plan_to_tensors(plan: CNPlan, device) -> Tuple[Dict, List[Dict]]:
@@ -227,7 +235,7 @@ def _device_job1(fact: Dict, dims: Sequence[Dict], *,
 
     def flat(rel, vol):
         text = _routed_text(rel["text"], _cn_joined(rel["send"]))
-        return {"text": text.reshape((-1,) + tuple(text.shape[3:])),
+        return {"text": text.flatten(0, 2),     # a width-0 text too
                 "vol": vol.reshape(-1)}
 
     return {"fact": flat(fact, vol_fact),
@@ -236,15 +244,14 @@ def _device_job1(fact: Dict, dims: Sequence[Dict], *,
 
 def _device_job2(vol_arrays: Dict, *, vocab: int,
                  accum: AccumPolicy) -> torch.Tensor:
-    """MR² only: one weighted histogram per relation of the vol-arrays,
-    summed over workers (the rows of every worker are in one axis) ->
-    ``[vocab]`` in the policy dtype."""
-    fact = vol_arrays["fact"]
-    hist = weighted_histogram(fact["text"], fact["vol"], vocab)
-    for d in vol_arrays["dims"]:
-        hist = hist + weighted_histogram(d["text"], d["vol"].to(hist.dtype),
-                                         vocab)
-    return psum(hist.to(accum.dtype))
+    """MR² only: one weighted histogram per relation of the vol-arrays
+    that carries text, summed over workers (the rows of every worker are in
+    one axis) -> ``[vocab]`` in the policy dtype."""
+    dtype = vol_arrays["fact"]["vol"].dtype
+    hists = [weighted_histogram(rel["text"], rel["vol"].to(dtype), vocab)
+             for rel in (vol_arrays["fact"], *vol_arrays["dims"])
+             if _has_text(rel)]
+    return psum(sum(hists[1:], hists[0]).to(accum.dtype))
 
 
 def _build_job1(sig: PlanSignature, mesh: VirtualMesh):

@@ -12,7 +12,8 @@ and of multi-CN batching.  The pow-2 padding also fixes the shapes (and hence
 Padding is semantics-free by construction:
   * extra ``S`` rows are never named by any send-table entry,
   * extra ``C`` slots hold -1, which the device program masks out,
-  * extra ``L`` columns hold PAD_ID, which the histogram never counts,
+  * extra ``L`` columns hold PAD_ID, which the histogram never counts
+    (a relation of width 0, one that carries no text, stays at 0),
   * a larger key ``domain`` only grows the num-arrays' zero tail.
 
 ``pad_plan_arrays`` pads one plan's host arrays to its signature, in the
@@ -97,7 +98,9 @@ def _route_sig(route: RelationRoute, domain: int, bucket: bool,
     S, L = route.ref.shard_rows, route.ref.text_len
     C = route.send.shape[-1]
     if bucket:
-        S, C, L = bucket_pow2(S), bucket_pow2(C), bucket_pow2(L)
+        # a relation without text (width 0) keeps width 0: MR² reads nothing
+        # of it, so there is no column to pad
+        S, C, L = bucket_pow2(S), bucket_pow2(C), bucket_pow2(L) if L else 0
         domain = bucket_pow2(domain) if domain else 0
     return RelationSig(rows=S, cap=C, text_len=L, domain=domain,
                        key_width=key_width)

@@ -66,7 +66,8 @@ first-use uploads shipped — send tables, key-column indices and text
 address tables — and ``send_hits``), ``engine.upload`` (``bytes``
 0: it only records the first stage event; ``bench/`` still reads it) and
 ``fct.route`` / ``fct.mr1`` / ``fct.mr2``, one around each stage, eager or
-replayed: host time, all of it.  The group span's ``graph`` arg says how
+replayed: host time, all of it (``fct.mr2`` with ``relations``, the number
+of the group's relations MR² reads).  The group span's ``graph`` arg says how
 the group ran: ``eager``, ``capture`` (captured, then replayed) or
 ``replay``.  Device time per stage comes from four CUDA events a group,
 recorded on the current stream before the first stage and after each
@@ -88,7 +89,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.accum import AccumPolicy
-from repro_torch.core.fct import _mr1_volumes, _mr2_histograms, _route_cn
+from repro_torch.core.fct import (_has_text, _mr1_volumes, _mr2_histograms,
+                                  _route_cn)
 from repro_torch.core.plan import CNPlan
 from repro_torch.kernels import _build
 from repro_torch.kernels.mr1_volumes import ops as mr1_ops
@@ -163,9 +165,10 @@ def _mark(marks: Optional[_GroupMarks]) -> None:
 
 
 def _mr2_token_slots(sig: PlanSignature, n_stack: int) -> int:
-    """Token slots one group hands to ``weighted_histogram``: every routed
-    row slot of every relation, ``n_stack * P * P * cap``, times its padded
-    ``text_len`` — padding and null CNs included, as launched."""
+    """Token slots one group hands to the MR² histogram: every routed row
+    slot of every relation, ``n_stack * P * P * cap``, times its padded
+    ``text_len`` — padding and null CNs included, as launched; a relation
+    of width 0, which MR² does not read, adds none."""
     P = sig.n_devices
     return n_stack * P * P * sum(r.cap * r.text_len
                                  for r in (sig.fact,) + tuple(sig.dims))
@@ -386,13 +389,16 @@ class FCTEngine:
     storeless call's included; ``device_to_host_bytes`` counts
     collection; ``groups_pruned`` / ``pruned_rows`` count the signature
     groups (and their routed fact rows) the top-k family skipped;
-    ``fct_count_tokens`` counts the token slots MR² hands to
-    ``weighted_histogram`` (rows × ``text_len``, padding included), from
+    ``fct_count_tokens`` counts the token slots MR² hands to the
+    histogram (rows × ``text_len`` of the relations it reads, padding
+    included), from
     the launched shapes; ``route_slots`` the gather slots the routing
     launches (``N·P·P·cap`` of every relation, as bucketed) beside
     ``route_rows``, the rows the group's plans send (``shuffle_rows``);
     ``mr2_by_reference`` the MR² launches that read their tokens through
-    a send table, one a relation of every dispatched group;
+    a send table, one a relation that carries text of every dispatched
+    group, and ``mr2_textless_skips`` the relations of width 0 beside them,
+    which MR² does not read;
     ``mr1_by_kernel`` the groups whose MR¹ stage went through the
     hand-written kernels (``kernels/mr1_volumes``; 0 on the CPU), counted
     from the stage's own path count, which a replay adds as its capture
@@ -427,6 +433,7 @@ class FCTEngine:
         self._c_route_slots = self.metrics.counter("engine.route_slots")
         self._c_route_rows = self.metrics.counter("engine.route_rows")
         self._c_mr2_by_ref = self.metrics.counter("engine.mr2_by_reference")
+        self._c_mr2_skips = self.metrics.counter("engine.mr2_textless_skips")
         self._c_mr1_by_kernel = self.metrics.counter("engine.mr1_by_kernel")
         # store path: send tables uploaded at a plan's first dispatch, and
         # those later dispatches found on the device
@@ -526,6 +533,7 @@ class FCTEngine:
                  else None)
         steps = _stage_steps(program, args.fact, args.dims)
         rows = n_stack * sig.n_devices ** 2 * sig.fact.cap
+        read = sum(map(_has_text, (args.fact, *args.dims)))
         # the stages' bumps (an eager run's, or those the last replay adds)
         # are held until the loop ends, so that this group's own bumps show
         # whether its MR¹ took the kernels; a capture and the replays
@@ -540,7 +548,9 @@ class FCTEngine:
                 with obs_span("engine.upload", bytes=0):
                     _mark(marks)
                 for i, name in enumerate(STAGE_SPANS):
-                    with obs_span(name, n_cns=n_stack, rows=rows):
+                    with obs_span(name, n_cns=n_stack, rows=rows,
+                                  **({"relations": read}
+                                     if name == "fct.mr2" else {})):
                         out = (next(steps) if graph == EAGER
                                else entry.graphs.replay(i))
                         _mark(marks)
@@ -553,7 +563,8 @@ class FCTEngine:
         self._c_fct_tokens.inc(_mr2_token_slots(sig, n_stack))
         self._c_route_slots.inc(_route_slots(sig, n_stack))
         self._c_route_rows.inc(sum(p.shuffle_rows for p in group))
-        self._c_mr2_by_ref.inc(1 + len(sig.dims))
+        self._c_mr2_by_ref.inc(read)
+        self._c_mr2_skips.inc(1 + len(sig.dims) - read)
         self._c_mr1_by_kernel.inc(sum(
             1 for counts, key in bumps
             if counts is mr1_ops.PATH_COUNTS and key == "cuda"))
@@ -822,18 +833,20 @@ class FCTEngine:
         out = self.cache.stats()
         (batches, cns, shipped, d2h, g_pruned, rows_pruned, tokens,
          send_uploads, send_hits, route_slots, route_rows, mr2_by_ref,
-         mr1_by_kernel, g_eager, g_captures, g_replays) = self.metrics.values(
+         mr2_skips, mr1_by_kernel, g_eager, g_captures,
+         g_replays) = self.metrics.values(
             self._c_batches, self._c_cns, self._c_bytes, self._c_d2h,
             self._c_groups_pruned, self._c_pruned_rows, self._c_fct_tokens,
             self._c_send_uploads, self._c_send_hits, self._c_route_slots,
-            self._c_route_rows, self._c_mr2_by_ref, self._c_mr1_by_kernel,
-            *self._c_graph.values())
+            self._c_route_rows, self._c_mr2_by_ref, self._c_mr2_skips,
+            self._c_mr1_by_kernel, *self._c_graph.values())
         out.update(batches_run=batches, cns_run=cns, bytes_shipped=shipped,
                    device_to_host_bytes=d2h,
                    groups_pruned=g_pruned, pruned_rows=rows_pruned,
                    fct_count_tokens=tokens, send_uploads=send_uploads,
                    send_hits=send_hits, route_slots=route_slots,
                    route_rows=route_rows, mr2_by_reference=mr2_by_ref,
+                   mr2_textless_skips=mr2_skips,
                    mr1_by_kernel=mr1_by_kernel,
                    graph_eager=g_eager, graph_captures=g_captures,
                    graph_replays=g_replays)

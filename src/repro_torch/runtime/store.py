@@ -45,6 +45,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.fct import _has_text
 from repro_torch.core.plan import CNPlan, RelationRef, RelationRoute
 from repro_torch.data.schema import PAD_ID
 from repro_torch.kernels.fct_count.kernel import text_pointers
@@ -56,7 +57,9 @@ from repro_torch.runtime.cache import LruDict
 
 
 class StoredColumns(NamedTuple):
-    """One tuple-set relation's device-resident padded columns."""
+    """One tuple-set relation's device-resident padded columns.  A relation
+    that carries no text (width 0) stores none: its ``text`` is a
+    ``[P, rows_pad, 0]`` tensor that holds no bytes."""
 
     text: torch.Tensor   # [P, rows_pad, text_pad] int32
     keys: torch.Tensor   # [P, rows_pad(, m_all)] int32
@@ -347,7 +350,8 @@ def store_group_args(store: RelationStore, plans: Sequence[CNPlan],
     ``fact`` / each dim slot is ``{"text": [N device tensors], "keys": [N
     device tensors], "send": [N device [1, P, P, C] int32]}``, on CUDA
     with ``"ptrs"``, the texts' address table (:meth:`RelationStore.
-    text_pointers`), and the fact adds ``"cols"``, N device ``[1, m]``
+    text_pointers`; none for a relation of width 0, which MR² does not
+    read), and the fact adds ``"cols"``, N device ``[1, m]``
     int32 key-column indices.  Every tensor is resident: columns and
     address tables in the store, each route's send table (padded to the
     signature's ``cap``) and key-column indices on the route itself,
@@ -380,7 +384,8 @@ def store_group_args(store: RelationStore, plans: Sequence[CNPlan],
             sends.extend([store.null_send(rsig.cap)] * pad)
         rel = {"text": [c.text for c in cols],
                "keys": [c.keys for c in cols], "send": sends}
-        if dev.type == "cuda":      # what the routed MR² kernel reads
+        if dev.type == "cuda" and _has_text(rel):
+            # what the routed MR² kernel reads
             rel["ptrs"], nbytes = store.text_pointers(rel["text"])
             shipped += nbytes
         return rel
